@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""pinc_tpu energy-drift curve on the C reference's exact langmuirCold
-deck (32^3, 2 x 64 ppc, 10k steps) — the overlay for BASELINE.md's
-protocol step 4.  Writes results/tpu_drift_curve.npy (2, 10001):
-row 0 = step, row 1 = total energy (simulation units).
-Run on the TPU: python cbaseline/tpu_drift.py"""
+"""pinc_tpu energy-drift curve on the C reference's langmuirCold deck
+(input/langmuirCold.ini at 32^3, 2 x 64 ppc, 10k steps) — the overlay
+for BASELINE.md's protocol step 4.  Writes results/pinc_drift_curve.npy
+(2, 10001): row 0 = step, row 1 = total energy (simulation units).
+Prints the device it ran on.  Run from the repository root:
+python cbaseline/pinc_drift.py"""
 import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(HERE))
 import numpy as np
 import jax
 
@@ -17,7 +19,6 @@ enable_compilation_cache()
 from pinc_tpu.config import PincConfig
 from pinc_tpu.tiled_sim import TiledSimulation
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 STEPS = int(os.environ.get("DRIFT_STEPS", "10000"))
 CH = int(os.environ.get("DRIFT_CHUNK", "500"))
 
@@ -31,23 +32,23 @@ CH = int(os.environ.get("DRIFT_CHUNK", "500"))
 # noise — pinc_tpu's deterministic deposit keeps rho EXACTLY zero and
 # the plasma stays frozen (verified: E = 0.0 for 2500+ steps).
 cfg = PincConfig.from_file(
-    "/root/reference/langmuirCold.ini",
+    os.path.join(os.path.dirname(HERE), "input", "langmuirCold.ini"),
     [f"time:nTimeSteps={STEPS}",
      "grid:nSubdomains=1,1,1",
      "grid:trueSize=32,32,32",
      "population:perturbAmplitude=0,0,0,0,0,0",
-     "methods:layout=tiled",
-     "tiles:mxuDtype=bf16"])
+     "methods:layout=tiled"])
 t0 = time.monotonic()
 sim = TiledSimulation(cfg, seed=1)
 n0 = int(jax.device_get(sim.state.alive.sum()))
-print(f"setup {time.monotonic()-t0:.0f}s n={n0:,} "
+dev = jax.devices()[0]
+print(f"device {dev.platform} {dev.device_kind}; "
+      f"setup {time.monotonic()-t0:.0f}s n={n0:,} "
       f"cadences={sim.rebucket_every_s}", flush=True)
 
 st = sim.state
 kes, pes, drops = [], [], 0
 run_ch = sim.make_scan_steps(CH)
-t0 = time.monotonic()
 for c in range(STEPS // CH):
     st, (ke, pe, dropped) = run_ch(st)
     ke = np.asarray(ke)
@@ -55,11 +56,10 @@ for c in range(STEPS // CH):
     pes.append(np.asarray(pe))
     drops += int(dropped)
     tot = ke.sum(axis=1) + pes[-1]
-    print(f"chunk {c:3d}: E={tot[-1]:.6e} drops_cum={drops} "
-          f"({time.monotonic()-t0:.0f}s)", flush=True)
+    print(f"chunk {c:3d}: E={tot[-1]:.6e} drops_cum={drops}", flush=True)
     # incremental save: a long run killed mid-flight keeps its curve
     done = np.concatenate(kes).sum(axis=1) + np.concatenate(pes)
-    np.save(os.path.join(HERE, "results", "tpu_drift_curve.npy"),
+    np.save(os.path.join(HERE, "results", "pinc_drift_curve.npy"),
             np.stack([np.arange(1, len(done) + 1, dtype=np.float64),
                       done]))
     if sim.retune(st):
@@ -68,14 +68,12 @@ ke = np.concatenate(kes).sum(axis=1)
 pe = np.concatenate(pes)
 tot = ke + pe
 steps = np.arange(1, len(tot) + 1, dtype=np.float64)
-np.save(os.path.join(HERE, "results", "tpu_drift_curve.npy"),
+np.save(os.path.join(HERE, "results", "pinc_drift_curve.npy"),
         np.stack([steps, tot]))
 n1 = int(jax.device_get(st.alive.sum()))
-wall = time.monotonic() - t0
 half = len(tot) // 2
 m = tot[half:].mean()
 per1k = (tot[-1] - tot[half]) / m / ((len(tot) - half) / 1000.0)
-print(f"{STEPS} steps in {wall:.0f}s -> {n0*STEPS/wall:.3e} psteps/s")
 print(f"E[0]={tot[0]:.4e} E[-1]={tot[-1]:.4e}; plateau-relative drift "
       f"{per1k*100:.1f}%/1k-steps over the last {len(tot)-half} steps")
 print(f"particles {n0:,} -> {n1:,} dropped={drops}")

@@ -2,7 +2,7 @@
 """Overlay the C-reference and pinc_tpu total-energy curves on the
 langmuirCold thermal-drift protocol (BASELINE.md step 4) and print the
 parity criterion.  Inputs: results/c_thermal_curve.npy +
-results/tpu_drift_curve.npy.  Writes results/drift_parity.png."""
+results/pinc_drift_curve.npy.  Writes results/drift_parity.png."""
 import os
 import sys
 
@@ -14,7 +14,7 @@ import matplotlib.pyplot as plt  # noqa: E402
 HERE = os.path.dirname(os.path.abspath(__file__))
 R = os.path.join(HERE, "results")
 c = np.load(os.path.join(R, "c_thermal_curve.npy"))
-t = np.load(os.path.join(R, "tpu_drift_curve.npy"))
+t = np.load(os.path.join(R, "pinc_drift_curve.npy"))
 
 
 def stats(cv):
@@ -27,7 +27,7 @@ def stats(cv):
 
 fig, ax = plt.subplots(figsize=(7.5, 4.5))
 for cv, label, color in ((c, "C reference (f64, 1 core)", "#555555"),
-                         (t, "pinc_tpu (f32/bf16, v5e)", "#0a7d36")):
+                         (t, "pinc_tpu (f32)", "#0a7d36")):
     e0, per1k = stats(cv)
     ax.plot(cv[0], cv[1] / e0,
             label=f"{label}: {per1k*100:+.3f}%/1k-steps plateau drift",
@@ -42,6 +42,6 @@ out = os.path.join(R, "drift_parity.png")
 fig.savefig(out, dpi=130)
 ce, cd = stats(c)
 te, td = stats(t)
-print(f"E(1):  C {ce:.5e}  TPU {te:.5e}  (ratio {te/ce:.5f})")
-print(f"plateau drift: C {cd*100:+.4f}%/1k  TPU {td*100:+.4f}%/1k")
+print(f"E(1):  C {ce:.5e}  pinc_tpu {te:.5e}  (ratio {te/ce:.5f})")
+print(f"plateau drift: C {cd*100:+.4f}%/1k  pinc_tpu {td*100:+.4f}%/1k")
 print("wrote", out)

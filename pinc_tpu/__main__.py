@@ -32,6 +32,9 @@ def main(argv=None) -> int:
         print(required_np(cfg))
         return 0
 
+    from .utils.jaxconfig import enable_compilation_cache
+    enable_compilation_cache()
+
     # import for registry side effects
     from . import simulation  # noqa: F401
 
@@ -47,9 +50,9 @@ def main(argv=None) -> int:
         mf.close()
 
     run = RUN_MODES.select(cfg, "methods:mode", default="regular")
-    msg(STATUS, "PINC-TPU started: %s", ini_path)
+    msg(STATUS, "pinc_tpu started: %s", ini_path)
     run()
-    msg(STATUS, "PINC-TPU finished")
+    msg(STATUS, "pinc_tpu finished")
     return 0
 
 

@@ -1,6 +1,6 @@
 """Boundary conditions beyond periodic.
 
-TPU-native equivalent of the reference's boundary machinery
+JAX-native equivalent of the reference's boundary machinery
 (``gSetBndSlices``, src/grid.c:608-662; ``gBnd`` →
 ``gPeriodic``/``gDirichlet``/``gNeumann``, src/grid.c:922-1023):
 

@@ -21,7 +21,7 @@ scripts work unchanged:
 The reference writes every field and the whole population every step via
 collective MPI-IO; here writes happen from host after fetching device
 snapshots, with an optional cadence (``files:writeFrequency``, default 1 =
-reference behavior) since per-step full-population IO is rarely what a TPU
+reference behavior) since per-step full-population IO is rarely what an accelerator
 run wants.
 """
 

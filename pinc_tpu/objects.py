@@ -1,5 +1,5 @@
 """Embedded conducting objects via the capacitance-matrix method
-(Miyake & Usui 2009), rebuilt TPU-first.
+(Miyake & Usui 2009), rebuilt JAX-first.
 
 Reference behavior (``src/object.c``):
 
@@ -22,7 +22,7 @@ Reference behavior (``src/object.c``):
   their charge spread uniformly over the object's surface nodes into the
   persistent ``rhoObj`` (``oCollectObjectCharge``, src/object.c:460-515).
 
-TPU redesign:
+JAX redesign:
 
 * Surface/interior detection is a dense 8-shift stencil over the whole
   id grid (one fused VPU pass) instead of per-node pointer walks.
@@ -88,7 +88,7 @@ def surface_normals(interior_any: np.ndarray) -> np.ndarray:
     """Outward unit normal field on the grid: -grad of the box-smoothed
     interior indicator, normalized (zero where degenerate).
 
-    TPU-native replacement for the reference's per-particle
+    JAX-native replacement for the reference's per-particle
     oFindNearestSurfaceNodes + cross-product normal (src/object.c:623-633,
     never finished): one dense precomputed (*L, D) field, sampled with a
     single gather per colliding particle."""
@@ -547,9 +547,10 @@ class ObjectSystem:
             phi_s = phi_flat[idx].astype(jnp.float32)
             # eq. 7: object potential
             phi_c = jnp.sum(C * phi_s[:, None]) * self.cap_sum[a]
-            # eq. 5: charge correction rho_i += sum_j C[j,i] dphi_j
+            # eq. 5: charge correction rho_i += sum_j C[j,i] dphi_j (full
+            # f32: a default-precision product may run in TF32 on the GPU)
             dphi = phi_c - phi_s
-            corr = C.T @ dphi
+            corr = jnp.matmul(C.T, dphi, precision=jax.lax.Precision.HIGHEST)
             rho_flat = rho_flat.at[idx].add(corr.astype(rho.dtype))
             phi_cs.append(phi_c)
         return rho_flat.reshape(self.shape), jnp.stack(phi_cs)

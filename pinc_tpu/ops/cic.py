@@ -1,6 +1,6 @@
 """Gather / scatter interpolation kernels (NGP and CIC).
 
-TPU-native equivalents of the reference's interpolators and distributors
+JAX-native equivalents of the reference's interpolators and distributors
 (``puInterp3D1``/``puInterpND1``/``puInterpND0``, src/pusher.c:1089-1178;
 ``puDistr3D1``/``puDistrND1``/``puDistrND0``, src/pusher.c:512-678).
 
@@ -8,10 +8,10 @@ The C code walks one particle at a time through strided pointers.  Here both
 directions are dense vectorized ops over the whole population:
 
 * gather  — 2^D wrapped corner gathers + lerp (a ``jnp.take``-style XLA
-  gather; trivially fast on TPU).
+  gather).
 * scatter — 2^D ``.at[].add`` scatter-adds.  This is the baseline; the
-  performance path (ops/deposit_tiled.py) converts deposition into dense
-  MXU contractions over particle tiles.
+  tiled layout (ops/tiled.py, ops/pallas_tiled.py) buckets particles by
+  tile and deposits onto small per-tile node blocks instead.
 
 Positions arrive in split (cell:int32, frac:float) form, so CIC weights
 ``frac``/``1-frac`` are exact — no catastrophic cancellation at large
@@ -19,8 +19,9 @@ coordinates as with a single float position.
 
 The reference's per-species "renormalization trick" (scaling the whole E/rho
 grid by q/m around each species loop, src/pusher.c:159-170, 522-568) is an
-MPI-era micro-optimization; on TPU the per-particle multiply is free and the
-grid rescale would cost an extra HBM sweep, so weights are applied directly.
+MPI-era micro-optimization; here the per-particle multiply rides the
+scatter and the grid rescale would cost an extra device-memory sweep, so
+weights are applied directly.
 """
 
 from __future__ import annotations

@@ -1,785 +1,262 @@
-"""Pallas TPU kernels for the tiled PIC hot loop.
+"""Fused particle kernel for the tiled layout (Pallas, Triton route).
 
-The XLA einsum formulation of tiled deposition/gather (ops/tiled.py)
-round-trips the (B, P^2) separable-weight intermediates through HBM, which
-caps it ~10x below compute speed-of-light.  These kernels fuse the weight
-construction with the contractions entirely in VMEM.
+The XLA route of ops/tiled.py builds the deposit and gather from dense
+per-tile contractions, which write (chunk, B, P) and (chunk, B, P^2)
+weight tensors to device memory — about half a kilobyte per particle slot
+at P = 11.  This kernel touches each particle once per step instead: it
+reads x, v and the alive flag, writes x and v back, and keeps every
+intermediate in registers.
 
-Layout (v3, full-row): each tile's B slots live on the *lane* axis as ONE
-(1, B) row; node offsets live on sublanes.  Per tile the kernel builds the
-hat-weight matrices with pure elementwise iota arithmetic (no cross-sublane
-relayouts) and runs ONE long-K MXU contraction:
+One program handles one tile's chunk of ``BC`` slots (a power of two) for
+every species:
 
-* ``deposit``:  out(P, P^2) = W_x(P, B) @ kron(W_y, W_z)(P^2, B)^T —
-  contraction over the B lanes, K = B.
-* ``gather``:   G(C*P, B) = E_tile(C*P, P^2) @ kron(P^2, B), then a
-  sublane reduction against W_x gives the per-particle field — no
-  per-particle memory indexing at all.
+* **kick** — gather E at the particle from the tile's padded
+  ``(P, P, P, 3)`` field block (CIC: 8 corners, NGP: 1), add the uniform
+  external field, then the leapfrog kick or the Boris rotation, and sum
+  the kinetic-energy term per program;
+* **drift** — x += v, and count live particles beyond the wander margin;
+* **deposit** — scatter q * weight onto the tile's padded ``P^3`` charge
+  block with atomic adds (8 corners for CIC, 1 for NGP).
 
-This replaced an 8-sublane-row blocking (measured 0.363 -> 0.345 ns/slot
-deposit, 0.574 -> 0.466 gather at 128^3/B=9216 on v5e): one build + one
-dot per tile amortizes fixed per-row costs and lengthens the K stream.
-Also measured and rejected: int8 weights (0.445 ns/slot — the round/
-convert VPU cost exceeds the MXU push saving), bf16-native weight builds
-(0.49 — VPU bf16 elementwise is emulated), multi-accumulator and
-concat-K schedulings (no change).
+Static flags choose the parts: the scan step runs all three, the object
+and bounded-wall decks run drift and deposit apart (their absorption and
+reflection sit between them), the initial half kick runs the gather alone.
 
-The fused variants cut the remaining XLA glue passes of the step:
+Corner nodes outside the padded block get weight 0 — the same support as
+the hat weights of ops.tiled, so a particle beyond the margin deposits
+and gathers only the part of its stencil that is inside the block, and
+dead slots (parked far outside) touch nothing.
 
-* ``deposit_move``: leapfrog drift (x += v), out-of-margin count, alive
-  masking and charge weighting all happen inside the deposition kernel —
-  the positions stream HBM->VMEM once instead of three times.
-* ``gather_kick``: the velocity kick v += qm*E(x) and the kinetic-energy
-  sum v.(v+dv) happen inside the gather kernel; the per-particle field
-  never goes back to HBM at all.
-
-HBM traffic is exactly the particle state (+ small per-tile outputs), so
-both kernels are compute-bound MXU/VPU work.  Cross-checked against
-ops/tiled.py in interpret mode (tests/test_pallas_tiled.py).
-
-Reference parity: deposit == puDistr3D1 (src/pusher.c:512-572), gather +
-kick == puAcc3D1KE (src/pusher.c:147-214), move == puMove
-(src/pusher.c:86-119) — rebuilt as dense separable contractions instead
-of per-particle scatter/gather walks.
+Reference parity: gather + kick == puAcc3D1KE / puBoris3D1KE
+(src/pusher.c:147-214, 437-482), drift == puMove (src/pusher.c:86-119),
+deposit == puDistr3D1 / puDistr3D0 (src/pusher.c:512-572).
 """
 
 from __future__ import annotations
 
-import math
 from functools import partial
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from .tiled import TileSpec
 
-
-def _dot_prec(mxu_dtype):
-    """MXU precision matching the requested weight dtype: default f32
-    dots run ONE bf16 pass on v5e (inputs bf16-rounded), so
-    tiles:mxuDtype=f32 must explicitly ask for full-precision passes —
-    otherwise f32 silently computes the same as bf16."""
-    return (jax.lax.Precision.HIGHEST if mxu_dtype == jnp.float32
-            else jax.lax.Precision.DEFAULT)
+# Largest slot chunk one program handles; bucket capacities are rounded
+# to slot_quantum() so that a power-of-two chunk divides them.
+SLOT_CHUNK = 512
+NUM_WARPS = 4
 
 
-def _w1d(d, order: int):
-    """offset row - node -> weight: CIC hat (order 1) or NGP round-half-up
-    indicator (order 0, the reference's ``(int)(pos+0.5)``,
-    src/pusher.c:1164-1178)."""
+def slot_quantum(slots: float) -> int:
+    """Bucket-capacity quantum for ``slots`` wanted slots: the smallest
+    power of two covering them, at most SLOT_CHUNK."""
+    q = 1
+    while q < min(slots, SLOT_CHUNK):
+        q *= 2
+    return q
+
+
+def _chunk(B: int) -> int:
+    """Largest power of two dividing B, at most SLOT_CHUNK."""
+    c = SLOT_CHUNK
+    while B % c:
+        c //= 2
+    return c
+
+
+def _stencil(x, M: int, P: int, order: int):
+    """Per-dimension (node index, weight) pairs of one coordinate row:
+    CIC two nodes with hat weights, NGP the nearest node (round half up,
+    the reference's ``(int)(pos+0.5)``).  Nodes outside [0, P) get
+    weight 0 and a clamped index."""
     if order == 0:
-        return ((d >= -0.5) & (d < 0.5)).astype(jnp.float32)
-    return jnp.maximum(0.0, 1.0 - jnp.abs(d))
+        i = jnp.floor(x + 0.5).astype(jnp.int32) + M
+        pairs = [(i, jnp.ones_like(x))]
+    else:
+        f = jnp.floor(x)
+        i = f.astype(jnp.int32) + M
+        w1 = x - f
+        pairs = [(i, 1.0 - w1), (i + 1, w1)]
+    return [(jnp.clip(i, 0, P - 1),
+             jnp.where((i >= 0) & (i < P), w, 0.0)) for i, w in pairs]
 
 
-def _weights_t(row, P: int, M: int, order: int = 1):
-    """row (1, B) tile-local coords -> (P, B) weights, node offsets
-    [-M .. T+M] on the sublane axis."""
-    b = row.shape[-1]
-    nodes = jax.lax.broadcasted_iota(jnp.int32, (P, b), 0)
-    nodes = nodes.astype(jnp.float32) - float(M)
-    return _w1d(row - nodes, order)
-
-
-def _kron_iota(y_row, z_row, P: int, M: int, dtype, order: int = 1):
-    """(1,B) y/z coords -> (P*P, B) kron of per-dim weights, built purely
-    elementwise against sublane iotas — no cross-sublane data movement."""
-    b = y_row.shape[-1]
-    j = jax.lax.broadcasted_iota(jnp.int32, (P * P, b), 0)
-    yy = (j // P).astype(jnp.float32) - float(M)
-    zz = (j % P).astype(jnp.float32) - float(M)
-    wy = _w1d(y_row - yy, order)
-    wz = _w1d(z_row - zz, order)
-    return (wy * wz).astype(dtype)
-
-
-def _tiles_per_step(NT: int, G: int) -> int:
-    """Largest power-of-two divisor of NT that is <= G (and a multiple of
-    8 when possible, for the (G, B) block sublane rule)."""
-    while NT % G:
-        G //= 2
-    return max(G, 1)
-
-
-def _lane_chunks(B: int, n_rows: int, G: int) -> int:
-    """Number of lane chunks J so the kernel's n_rows double-buffered
-    (G, B/J) f32 blocks fit the scoped-VMEM budget, with
-    B/J % 128 == 0 (the Mosaic lane quantum).  Large-B decks (e.g.
-    nAlloc = 96 pc at 32^3 -> B = 61440) OOM unchunked at G = 8;
-    chunking the LANES (not G) keeps the dense (G, B) layout the
-    kernels are tuned for.
-
-    Budget calibration: the tiled jits compile with
-    xla_tpu_scoped_vmem_limit_kib = 24576 (tiled_sim._SCOPED_VMEM_KIB),
-    and the compiler's measured stack runs ~1.13x this row estimate
-    (16.24 MiB actual vs 14.48 MiB estimated at B=17408, n_rows=13,
-    G=8), so the estimate limit of 18 MB keeps ~17% true headroom."""
-    limit = 18_000_000
-    for j in range(1, B // 128 + 1):
-        if B % j:
-            continue
-        CB = B // j
-        if CB % 128 and CB != B:
-            continue
-        if n_rows * G * CB * 4 * 2 <= limit:
-            return j
-    return max(B // 128, 1)
-
-
-def _row_specs(NT: int, B: int, G: int, n: int):
-    pin = pl.BlockSpec((G, B), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    return [pin] * n
-
-
-# ---------------------------------------------------------------------------
-# Deposition
-# ---------------------------------------------------------------------------
-
-def _deposit_kernel(x_ref, y_ref, z_ref, val_ref, out_ref, *, P, M,
-                    mxu_dtype, G, order=1):
-    j = pl.program_id(1)
-
-    def tile_body(g, _):
-        sl = (pl.ds(g, 1), slice(None))
-        wx = (_weights_t(x_ref[sl], P, M, order)
-              * val_ref[sl]).astype(mxu_dtype)
-        wyz = _kron_iota(y_ref[sl], z_ref[sl], P, M, mxu_dtype, order)
-        acc = jax.lax.dot_general(
-            wx, wyz, (((1,), (1,)), ((), ())),      # contract lanes, K = CB
-            preferred_element_type=jnp.float32,
-            precision=_dot_prec(mxu_dtype))
-
-        @pl.when(j == 0)
-        def _():
-            out_ref[pl.ds(g, 1), :, :] = acc[None]
-
-        @pl.when(j != 0)
-        def _():
-            out_ref[pl.ds(g, 1), :, :] += acc[None]
-
-        return 0
-
-    jax.lax.fori_loop(0, G, tile_body, 0)
-
-
-def deposit(xyz: jax.Array, value: jax.Array, ts: TileSpec,
-            interpret: bool = False, mxu_dtype=jnp.float32,
-            tiles_per_step: int = 8, order: int = 1) -> jax.Array:
-    """xyz (3, NT, B) tile-local coordinate planes f32, value (NT, B)
-    charge*alive -> padded tile densities (NT, P, P*P) f32.
-
-    Component-plane input keeps the kernel feed transpose-free (an
-    (NT, B, 3) layout would materialize three strided copies per call).
-
-    mxu_dtype=bfloat16 halves the MXU operand push traffic; deposit and
-    gather then use IDENTICALLY-rounded weight matrices, so gather stays
-    the exact adjoint of deposit (the self-force cancellation PIC needs)
-    — only an O(2^-8) zero-mean weight dither is introduced."""
-    assert ts.n_dims == 3, "pallas deposit is 3D (use ops.tiled for ND)"
-    _, NT, B = xyz.shape
-    P = ts.P
-    G = _tiles_per_step(NT, tiles_per_step)
-    J = _lane_chunks(B, 4, G)
-    CB = B // J
-    row = pl.BlockSpec((G, CB), lambda i, j: (i, j),
-                       memory_space=pltpu.VMEM)
-
-    out = pl.pallas_call(
-        partial(_deposit_kernel, P=P, M=ts.M, mxu_dtype=mxu_dtype, G=G,
-                order=order),
-        out_shape=jax.ShapeDtypeStruct((NT, P, P * P), jnp.float32),
-        grid=(NT // G, J),
-        in_specs=[row] * 4,
-        out_specs=pl.BlockSpec((G, P, P * P), lambda i, j: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(xyz[0], xyz[1], xyz[2], value)
+def _corners(xyz, M: int, P: int, order: int):
+    """(flat node index within the tile block, weight) per stencil
+    corner."""
+    sx, sy, sz = (_stencil(c, M, P, order) for c in xyz)
+    out = []
+    for ix, wx in sx:
+        for iy, wy in sy:
+            for iz, wz in sz:
+                out.append(((ix * P + iy) * P + iz, wx * wy * wz))
     return out
 
 
-def deposit_to_grid(xyz, alive, charge, ts: TileSpec,
-                    interpret: bool = False,
-                    mxu_dtype=jnp.float32) -> jax.Array:
-    from .tiled import fold_to_global
-    value = jnp.where(alive, jnp.asarray(charge, jnp.float32), 0.0)
-    tiles = deposit(xyz, value, ts, interpret=interpret,
-                    mxu_dtype=mxu_dtype)
-    return fold_to_global(tiles.reshape((ts.NT,) + (ts.P,) * 3), ts)
-
-
-# ---------------------------------------------------------------------------
-# Fused move + deposition (+ out-of-margin count)
-# ---------------------------------------------------------------------------
-
-def _deposit_move_kernel(x_ref, y_ref, z_ref, vx_ref, vy_ref, vz_ref,
-                         alive_ref, out_ref, xo_ref, yo_ref, zo_ref,
-                         nout_ref, *, P, M, T, q, mxu_dtype, G, order=1):
-    lo, hi = -float(M), float(T + M)
-    j = pl.program_id(1)
-
-    def tile_body(g, bad_acc):
-        sl = (pl.ds(g, 1), slice(None))
-        alive = alive_ref[sl]
-        x = x_ref[sl] + vx_ref[sl]
-        y = y_ref[sl] + vy_ref[sl]
-        z = z_ref[sl] + vz_ref[sl]
-        xo_ref[sl] = x
-        yo_ref[sl] = y
-        zo_ref[sl] = z
-        out = ((x < lo) | (x >= hi) | (y < lo) | (y >= hi)
-               | (z < lo) | (z >= hi))
-        bad = jnp.where(out, alive, 0.0)
-        wx = (_weights_t(x, P, M, order) * (alive * q)).astype(mxu_dtype)
-        wyz = _kron_iota(y, z, P, M, mxu_dtype, order)
-        acc = jax.lax.dot_general(
-            wx, wyz, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_dot_prec(mxu_dtype))
-
-        @pl.when(j == 0)
-        def _():
-            out_ref[pl.ds(g, 1), :, :] = acc[None]
-
-        @pl.when(j != 0)
-        def _():
-            out_ref[pl.ds(g, 1), :, :] += acc[None]
-
-        return bad_acc + jnp.sum(bad)
-
-    total = jax.lax.fori_loop(0, G, tile_body, jnp.float32(0))
-
-    @pl.when(j == 0)
-    def _():
-        nout_ref[...] = jnp.zeros_like(nout_ref) + total
-
-    @pl.when(j != 0)
-    def _():
-        nout_ref[...] += total
-
-
-def deposit_move(xyz: jax.Array, vel: jax.Array, alive: jax.Array,
-                 charge: float, ts: TileSpec, interpret: bool = False,
-                 mxu_dtype=jnp.float32, tiles_per_step: int = 8,
-                 order: int = 1):
-    """Fused leapfrog drift + CIC/NGP deposition for one species.
-
-    xyz, vel: (3, NT, B) planes f32; alive: (NT, B) f32 0/1 mask.
-    Returns (tiles (NT, P, P*P) charge-weighted, new_xyz (3, NT, B),
-    n_out scalar f32 — live particles beyond the wander margin)."""
-    assert ts.n_dims == 3
-    _, NT, B = xyz.shape
-    P = ts.P
-    G = _tiles_per_step(NT, tiles_per_step)
-    # lane chunking for large-B buckets (10 row blocks: 7 in + 3 out)
-    J = _lane_chunks(B, 10, G)
-    CB = B // J
-    row = pl.BlockSpec((G, CB), lambda i, j: (i, j),
-                       memory_space=pltpu.VMEM)
-
-    tiles, xo, yo, zo, nout = pl.pallas_call(
-        partial(_deposit_move_kernel, P=P, M=ts.M, T=ts.T,
-                q=float(charge), mxu_dtype=mxu_dtype, G=G, order=order),
-        out_shape=(jax.ShapeDtypeStruct((NT, P, P * P), jnp.float32),
-                   jax.ShapeDtypeStruct((NT, B), jnp.float32),
-                   jax.ShapeDtypeStruct((NT, B), jnp.float32),
-                   jax.ShapeDtypeStruct((NT, B), jnp.float32),
-                   jax.ShapeDtypeStruct((NT // G, 1, 128),
-                                        jnp.float32)),
-        grid=(NT // G, J),
-        in_specs=[row] * 7,
-        out_specs=(pl.BlockSpec((G, P, P * P), lambda i, j: (i, 0, 0),
-                                memory_space=pltpu.VMEM),
-                   row, row, row,
-                   pl.BlockSpec((1, 1, 128), lambda i, j: (i, 0, 0),
-                                memory_space=pltpu.VMEM)),
-        interpret=interpret,
-    )(xyz[0], xyz[1], xyz[2], vel[0], vel[1], vel[2], alive)
-    new_xyz = jnp.stack([xo, yo, zo])
-    return tiles, new_xyz, jnp.sum(nout[:, 0, 0])
-
-
-# ---------------------------------------------------------------------------
-# Gather
-# ---------------------------------------------------------------------------
-
-def _gather_kernel(x_ref, y_ref, z_ref, e_ref, out_ref, *, P, M, C,
-                   mxu_dtype, G, order=1):
-    """Per tile:  G_all(C*P, B) = E_all(C*P, P^2) @ wyz(P^2, B) on the MXU
-    (all C components stacked along the matmul M-dim), then e_c = sum_x
-    wx * G_c — the largest intermediate is the shared (P^2, B) kron."""
-    def tile_body(g, _):
-        E_all = e_ref[g, :, :, :].reshape(C * P, P * P).astype(mxu_dtype)
-        sl = (pl.ds(g, 1), slice(None))
-        wx = _weights_t(x_ref[sl], P, M, order)      # (P, B)
-        wyz = _kron_iota(y_ref[sl], z_ref[sl], P, M, mxu_dtype, order)
-        G_all = jax.lax.dot_general(
-            E_all, wyz, (((1,), (0,)), ((), ())),    # (C*P, B)
-            preferred_element_type=jnp.float32,
-            precision=_dot_prec(mxu_dtype))
-        for c in range(C):
-            Gc = G_all[c * P:(c + 1) * P, :]
-            out_ref[c, g, :] = jnp.sum(wx * Gc, axis=0)
-        return 0
-
-    jax.lax.fori_loop(0, G, tile_body, 0)
-
-
-def gather(field_pad: jax.Array, xyz: jax.Array, ts: TileSpec,
-           interpret: bool = False, mxu_dtype=jnp.float32,
-           tiles_per_step: int = 8, order: int = 1) -> jax.Array:
-    """field_pad (NT, P, P, P, C), xyz (3, NT, B) coordinate planes ->
-    (C, NT, B) component-major field at the particles (matches the
-    plane state layout, so neither side of the call transposes)."""
-    assert ts.n_dims == 3
-    _, NT, B = xyz.shape
-    P = ts.P
-    C = field_pad.shape[-1]
-    G = _tiles_per_step(NT, tiles_per_step)
-    # lane chunking for large-B buckets (6 row blocks: 3 in + C out)
-    J = _lane_chunks(B, 3 + C, G)
-    CB = B // J
-    row = pl.BlockSpec((G, CB), lambda i, j: (i, j),
-                       memory_space=pltpu.VMEM)
-
-    # component-major field tiles: (NT, C, P, P^2)
-    E = jnp.moveaxis(field_pad, -1, 1).reshape(NT, C, P, P * P)
-    out = pl.pallas_call(
-        partial(_gather_kernel, P=P, M=ts.M, C=C, mxu_dtype=mxu_dtype, G=G,
-                order=order),
-        out_shape=jax.ShapeDtypeStruct((C, NT, B), jnp.float32),
-        grid=(NT // G, J),
-        in_specs=[row, row, row,
-                  pl.BlockSpec((G, C, P, P * P), lambda i, j: (i, 0, 0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((C, G, CB), lambda i, j: (0, i, j),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(xyz[0], xyz[1], xyz[2], E)
-    return out
-
-
-# ---------------------------------------------------------------------------
-# Mega-fused step: kick + drift + deposit, ALL species in one kernel
-# ---------------------------------------------------------------------------
-
-def _embed_cols(P: int, M: int, Pm: int, m: int, dtype):
-    """(P*P, Pm*Pm) binary matrix mapping the margin-m (y, z) kron index
-    onto the margin-M one: col jm = ym*Pm + zm -> row (ym+dM)*P + zm+dM.
-    Exact in bf16 (0/1 entries)."""
-    dM = M - m
-    i2 = jax.lax.broadcasted_iota(jnp.int32, (P * P, Pm * Pm), 0)
-    j2 = jax.lax.broadcasted_iota(jnp.int32, (P * P, Pm * Pm), 1)
-    ym = j2 // Pm
-    zm = j2 % Pm
-    return (i2 == (ym + dM) * P + (zm + dM)).astype(dtype)
-
-
-def _pic_step_kernel(q_ref, qm_ref, tvec_ref, svec_ref, pos_ref, vel_ref,
-                     alive_ref, e_ref, tiles_ref, pos_out_ref, vel_out_ref,
-                     ke_ref, nout_ref, *, P, M, T, C, mxu_dtype, G,
-                     order_acc=1, order_distr=1, e_ext=(0.0, 0.0, 0.0),
-                     boris=False, e_merged=False, margins=None):
-    s = pl.program_id(1)
-    j = pl.program_id(2)
-    q = q_ref[0, s]
-    qm = qm_ref[0, s]
-    boris_ts = None
-    if boris:
-        boris_ts = ((tvec_ref[0, s], tvec_ref[1, s], tvec_ref[2, s]),
-                    (svec_ref[0, s], svec_ref[1, s], svec_ref[2, s]))
-
-    def species_body(mg: int, md: int):
-        """One species' gather+kick+drift+deposit at effective margins
-        (mg, md) <= M: the IO shapes stay at the layout margin M, the
-        weight krons and MXU contractions shrink to the margin actually
-        needed at this point of the re-bucket window (e.g. one step after
-        a re-bucket no particle has wandered past 1 cell), with O(P^4)
-        embed matmuls bridging the shapes.  mg == md == M is the plain
-        full-margin path (no remaps)."""
-        Pg = T + 1 + 2 * mg
-        Pd = T + 1 + 2 * md
-        dg = M - mg
-        dd = M - md
-        lo, hi = -float(md), float(T + md)
-        Cg = (None if mg == M else _embed_cols(P, M, Pg, mg, mxu_dtype))
-        Cd = (None if md == M else
-              _embed_cols(P, M, Pd, md, jnp.float32))
-
-        def tile_body(g, acc):
-            vdot_acc, bad_acc = acc
-            gsl = pl.ds(g, 1)
-            alive = alive_ref[0, gsl, :]                 # (1, B)
-            x = pos_ref[0, 0, gsl, :]
-            y = pos_ref[0, 1, gsl, :]
-            z = pos_ref[0, 2, gsl, :]
-            # gather E at the pre-drift positions (leapfrog kick E_n(x_n))
-            if e_merged:
-                # (C*P, P*P) tiles straight from pallas_field.efield_tiles
-                # (already in mxu_dtype — the astype is a no-op then)
-                E_all = e_ref[g, :, :].astype(mxu_dtype)
-            else:
-                E_all = e_ref[g, :, :, :].reshape(
-                    C * P, P * P).astype(mxu_dtype)
-            if mg < M:
-                # margin-mg kron: Pg^2 <= 128 fits ONE MXU lane tile where
-                # the full P^2 spans two; E columns remapped once per tile
-                E_all = jax.lax.dot_general(
-                    E_all, Cg, (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=_dot_prec(mxu_dtype)).astype(mxu_dtype)
-            wx = _weights_t(x, Pg, mg, order_acc)
-            wyz = _kron_iota(y, z, Pg, mg, mxu_dtype, order_acc)
-            G_all = jax.lax.dot_general(
-                E_all, wyz, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=_dot_prec(mxu_dtype))      # (C*P, B)
-            Ecs = [jnp.sum(wx * G_all[c * P + dg:c * P + dg + Pg, :],
-                           axis=0, keepdims=True) + e_ext[c]
-                   for c in range(C)]
-            vs = [vel_ref[0, c, gsl, :] for c in range(3)]
-            vouts, vdot = _kick_rows(vs, Ecs, qm, boris_ts)
-            news = []
-            for c, pc in enumerate((x, y, z)):
-                vn = vs[c] + alive * (vouts[c] - vs[c])
-                vel_out_ref[0, c, gsl, :] = vn
-                pn = pc + vn                              # drift, v_{n+1/2}
-                pos_out_ref[0, c, gsl, :] = pn
-                news.append(pn)
-            nx, ny, nz = news
-            out = ((nx < lo) | (nx >= hi) | (ny < lo) | (ny >= hi)
-                   | (nz < lo) | (nz >= hi))
-            # deposit at the post-drift positions
-            wxn = (_weights_t(nx, Pd, md, order_distr)
-                   * (alive * q)).astype(mxu_dtype)
-            wyzn = _kron_iota(ny, nz, Pd, md, mxu_dtype, order_distr)
-            dep = jax.lax.dot_general(
-                wxn, wyzn, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=_dot_prec(mxu_dtype))      # (Pd, Pd^2)
-            if md < M:
-                # Cd is (P^2, Pd^2): contract the margin-md kron index.
-                # HIGHEST: default f32 dots run one bf16 MXU pass on v5e,
-                # which would round the f32 deposit values (the 0/1 embed
-                # side is exact either way)
-                dep = jax.lax.dot_general(
-                    dep, Cd, (((1,), (1,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.HIGHEST)  # (Pd, P^2)
-
-            @pl.when((s == 0) & (j == 0))
-            def _():
-                tiles_ref[gsl, :, :] = jnp.zeros_like(tiles_ref[gsl])
-                tiles_ref[gsl, dd:dd + Pd, :] += dep[None]
-
-            @pl.when((s != 0) | (j != 0))
-            def _():
-                tiles_ref[gsl, dd:dd + Pd, :] += dep[None]
-
-            return (vdot_acc + jnp.sum(vdot * alive),
-                    bad_acc + jnp.sum(jnp.where(out, alive, 0.0)))
-
-        return jax.lax.fori_loop(
-            0, G, tile_body, (jnp.float32(0), jnp.float32(0)))
-
-    groups = {}
-    if margins is None:
-        groups[(M, M)] = None                            # all species
-    else:
-        for idx, pair in enumerate(margins):
-            groups.setdefault(tuple(pair), []).append(idx)
-
-    if len(groups) == 1:
-        mg, md = next(iter(groups))
-        vdot, bad = species_body(mg, md)
-
-        @pl.when(j == 0)
-        def _():
-            ke_ref[...] = jnp.zeros_like(ke_ref) + vdot
-            nout_ref[...] = jnp.zeros_like(nout_ref) + bad
-
-        @pl.when(j != 0)
-        def _():
-            ke_ref[...] += vdot
-            nout_ref[...] += bad
-        return
-
-    for (mg, md), idxs in groups.items():
-        cond = (s == idxs[0])
-        for i in idxs[1:]:
-            cond = cond | (s == i)
-
-        @pl.when(cond)
-        def _(mg=mg, md=md):
-            vdot, bad = species_body(mg, md)
-
-            @pl.when(j == 0)
-            def _():
-                ke_ref[...] = jnp.zeros_like(ke_ref) + vdot
-                nout_ref[...] = jnp.zeros_like(nout_ref) + bad
-
-            @pl.when(j != 0)
-            def _():
-                ke_ref[...] += vdot
-                nout_ref[...] += bad
-
-
-def pic_step(field_pad: jax.Array, lpos: jax.Array, vel: jax.Array,
-             alive: jax.Array, charge, qm_dt, ts: TileSpec,
-             interpret: bool = False, mxu_dtype=jnp.float32,
-             tiles_per_step: int = 8, order_acc: int = 1,
-             order_distr: int = 1, e_ext=None,
-             boris_T=None, boris_S=None, margins=None):
-    """One full leapfrog step for ALL species in a single Pallas kernel:
-    gather E(x_n) -> kick v -> drift x -> CIC/NGP-deposit rho_{n+1}.
-
-    order_acc / order_distr: 1 CIC, 0 NGP (independent, like the
-    reference's separate methods:acc / methods:distr selections).
-    e_ext: optional length-3 external E (floats, species-independent).
-    boris_T / boris_S: optional (S, 3) per-species rotation vectors
-    (puGet3DRotationParameters, src/pusher.c:483-505); when given the
-    kick is the full Boris sequence and vdot is |v_plus|^2 per species
-    (puBoris3D1KE, src/pusher.c:437-482).
-
-    margins: optional per-species static (margin_gather, margin_deposit)
-    pairs, each <= ts.M.  The IO shapes stay at the layout margin; the
-    kernel builds the weight krons at the EFFECTIVE margin a species
-    needs at this point of its re-bucket window (one step after a
-    re-bucket nothing has wandered more than one cell), with tiny binary
-    embed matmuls bridging the shapes.  For in-envelope particles the
-    result is exactly equivalent to the full-margin kernel — the embeds
-    are 0/1-exact and the hat weights at the dropped nodes are zero —
-    up to f32 summation-tree rounding (the contraction pairs the same
-    nonzero terms in a different order; ~1 ulp, same order as the bf16
-    weight dither).  A particle beyond the scheduled margin
-    deposits/gathers clipped weights and is counted in n_out, exactly
-    like the full-margin kernel's own envelope.
-
-    The species loop rides the second grid dimension (s innermost), so the
-    per-tile density block stays resident in VMEM and accumulates across
-    species, and the E tiles are fetched once per tile block rather than
-    once per species.  Versus the deposit_move/gather_kick pair this
-    halves the particle-state HBM traffic (x, v stream once per step) and
-    removes the (S, 3, NT, B) stack copies entirely.
-
-    field_pad (NT, P, P, P, C); lpos, vel (S, 3, NT, B); alive (S, NT, B)
-    f32 0/1; charge (S,) deposit weights; qm_dt (S,) kick factors
-    (q/m * dt).  Returns (tiles (NT, P, P*P) summed over species,
-    new_lpos, new_vel, vdot (S,) = sum alive*v.(v+dv) per species,
-    n_out (S,) live particles beyond the wander margin after the drift).
-
-    Reference parity: one iteration of the src/main.c:197-274 time loop's
-    particle work — acc (pusher.c:147-214), puMove (pusher.c:86-119) and
-    puDistr3D1 (pusher.c:512-572) — with the reference's separate grid
-    sweeps fused into one VMEM-resident pass.
-    """
-    assert ts.n_dims == 3
-    S, D, NT, B = lpos.shape
-    P = ts.P
-    G = _tiles_per_step(NT, tiles_per_step)
-    NI = NT // G
-
-    e_merged = field_pad.ndim == 3
-    if e_merged:
-        # pre-merged (NT, C*P, P*P) rows — ops.pallas_field.efield_tiles
-        E = field_pad
-        C = field_pad.shape[1] // P
-    elif field_pad.ndim == 4:
-        # already component-major (NT, C, P, P*P) — ops.tiled.pad_tiles_cmajor
-        E = field_pad
-        C = field_pad.shape[1]
-    else:
-        C = field_pad.shape[-1]
-        E = jnp.moveaxis(field_pad, -1, 1).reshape(NT, C, P, P * P)
-    q_arr = jnp.asarray(charge, jnp.float32).reshape(1, S)
-    qm_arr = jnp.asarray(qm_dt, jnp.float32).reshape(1, S)
-    boris = boris_T is not None
-    if boris:
-        t_arr = jnp.asarray(boris_T, jnp.float32).reshape(S, 3).T  # (3, S)
-        s_arr = jnp.asarray(boris_S, jnp.float32).reshape(S, 3).T
-    else:
-        t_arr = jnp.zeros((3, S), jnp.float32)
-        s_arr = jnp.zeros((3, S), jnp.float32)
-    e_ext_t = (0.0, 0.0, 0.0) if e_ext is None else tuple(
-        float(v) for v in e_ext)
-    # lane chunking (grid dim j, fastest): keeps the dense (G, B) row
-    # layout while bounding VMEM for large-B decks (e.g. nAlloc=96pc at
-    # 32^3 -> B=61440).  J=1 (no chunking) at the bench point.
-    J = _lane_chunks(B, 13, G)
-    CB = B // J
-    smem = pl.BlockSpec((1, S), lambda i, s, j: (0, 0),
-                        memory_space=pltpu.SMEM)
-    smem3 = pl.BlockSpec((3, S), lambda i, s, j: (0, 0),
-                         memory_space=pltpu.SMEM)
-    svec = pl.BlockSpec((1, 3, G, CB), lambda i, s, j: (s, 0, i, j),
-                        memory_space=pltpu.VMEM)
-    srow = pl.BlockSpec((1, G, CB), lambda i, s, j: (s, i, j),
-                        memory_space=pltpu.VMEM)
-    sacc = pl.BlockSpec((1, 1, 1, 128), lambda i, s, j: (s, i, 0, 0),
-                        memory_space=pltpu.VMEM)
-
-    if margins is not None:
-        margins = tuple((int(mg), int(md)) for mg, md in margins)
-        assert len(margins) == S and all(
-            0 <= mg <= ts.M and 1 <= md <= ts.M for mg, md in margins)
-        if all(m == (ts.M, ts.M) for m in margins):
-            margins = None
-    tiles, pos_o, vel_o, ke, nout = pl.pallas_call(
-        partial(_pic_step_kernel, P=P, M=ts.M, T=ts.T, C=C,
-                mxu_dtype=mxu_dtype, G=G, order_acc=order_acc,
-                order_distr=order_distr, e_ext=e_ext_t, boris=boris,
-                e_merged=e_merged, margins=margins),
-        out_shape=(jax.ShapeDtypeStruct((NT, P, P * P), jnp.float32),
-                   jax.ShapeDtypeStruct((S, 3, NT, B), jnp.float32),
-                   jax.ShapeDtypeStruct((S, 3, NT, B), jnp.float32),
-                   jax.ShapeDtypeStruct((S, NI, 1, 128), jnp.float32),
-                   jax.ShapeDtypeStruct((S, NI, 1, 128), jnp.float32)),
-        grid=(NI, S, J),
-        in_specs=[smem, smem, smem3, smem3, svec, svec, srow,
-                  (pl.BlockSpec((G, C * P, P * P),
-                                lambda i, s, j: (i, 0, 0),
-                                memory_space=pltpu.VMEM) if e_merged else
-                   pl.BlockSpec((G, C, P, P * P),
-                                lambda i, s, j: (i, 0, 0, 0),
-                                memory_space=pltpu.VMEM))],
-        out_specs=(pl.BlockSpec((G, P, P * P), lambda i, s, j: (i, 0, 0),
-                                memory_space=pltpu.VMEM),
-                   svec, svec, sacc, sacc),
-        interpret=interpret,
-    )(q_arr, qm_arr, t_arr, s_arr, lpos, vel, alive, E)
-    return (tiles, pos_o, vel_o,
-            jnp.sum(ke[:, :, 0, 0], axis=1),
-            jnp.sum(nout[:, :, 0, 0], axis=1))
-
-
-# ---------------------------------------------------------------------------
-# Fused gather + kick (+ kinetic energy)
-# ---------------------------------------------------------------------------
-
-def _cross_rows(a, b):
-    """cross product of two 3-lists of (1, B) rows (b may be floats)."""
+def _cross(a, b):
     return [a[1] * b[2] - a[2] * b[1],
             a[2] * b[0] - a[0] * b[2],
             a[0] * b[1] - a[1] * b[0]]
 
 
-def _kick_rows(vs, Ecs, qm, boris):
-    """Shared velocity-kick arithmetic on (1, B) rows.
-
-    vs: 3 velocity rows; Ecs: 3 gathered+external field rows.
-    boris: None for the plain electrostatic kick, else (T, S) float
-    3-tuples (puGet3DRotationParameters, src/pusher.c:483-505).
-    Returns (new velocity rows [unmasked — caller applies alive],
-    vdot row: v.(v+dv) for leapfrog, |v_plus|^2 for Boris, matching
-    puAcc3D1KE / puBoris3D1KE (src/pusher.c:197-210, 465-471))."""
+def _kick(v, E, qm: float, boris):
+    """Leapfrog kick (vdot = v.(v+dv)) or the Boris rotation (vdot =
+    |v_plus|^2), matching the KE conventions of puAcc3D1KE and
+    puBoris3D1KE (src/pusher.c:197-210, 465-471)."""
     if boris is None:
-        vdot = None
-        outs = []
-        for c in range(3):
-            dv = qm * Ecs[c]
-            vn = vs[c] + dv
-            term = vs[c] * vn
-            vdot = term if vdot is None else vdot + term
-            outs.append(vn)
-        return outs, vdot
+        vn = [v[c] + qm * E[c] for c in range(3)]
+        return vn, v[0] * vn[0] + v[1] * vn[1] + v[2] * vn[2]
     T, S = boris
-    half = [0.5 * qm * Ecs[c] for c in range(3)]
-    vm = [vs[c] + half[c] for c in range(3)]
-    cr = _cross_rows(vm, T)
+    half = [0.5 * qm * E[c] for c in range(3)]
+    vm = [v[c] + half[c] for c in range(3)]
+    cr = _cross(vm, T)
     vpr = [vm[c] + cr[c] for c in range(3)]
-    cr2 = _cross_rows(vpr, S)
+    cr2 = _cross(vpr, S)
     vpl = [vm[c] + cr2[c] for c in range(3)]
-    outs = [vpl[c] + half[c] for c in range(3)]
-    vdot = vpl[0] * vpl[0] + vpl[1] * vpl[1] + vpl[2] * vpl[2]
-    return outs, vdot
+    vn = [vpl[c] + half[c] for c in range(3)]
+    return vn, vpl[0] * vpl[0] + vpl[1] * vpl[1] + vpl[2] * vpl[2]
 
 
-def _gather_kick_kernel(x_ref, y_ref, z_ref, vx_ref, vy_ref, vz_ref,
-                        alive_ref, e_ref, vxo_ref, vyo_ref, vzo_ref,
-                        ke_ref, *, P, M, C, qm, mxu_dtype, G, order=1,
-                        e_ext=(0.0, 0.0, 0.0), boris=None):
-    j = pl.program_id(1)
+def _kernel(*refs, S, NC, BC, T, M, P, charge, qm, kick, drift, deposit,
+            order_acc, order_distr, e_ext, boris, interpret):
+    refs = list(refs)
+    lpos_ref, vel_ref, alive_ref = refs[:3]
+    i = 3
+    e_ref = None
+    if kick:
+        e_ref = refs[i]
+        i += 1
+    if deposit:
+        i += 1                                  # zeros aliased to rho_ref
+    outs = refs[i:]
+    rho_ref = outs.pop(0) if deposit else None
+    pos_out = outs.pop(0) if drift else None
+    vel_out = outs.pop(0) if kick else None
+    ke_ref = outs.pop(0) if kick else None
+    nout_ref = outs.pop(0) if drift else None
 
-    def tile_body(g, vdot_acc):
-        E_all = e_ref[g, :, :, :].reshape(C * P, P * P).astype(mxu_dtype)
-        sl = (pl.ds(g, 1), slice(None))
-        alive = alive_ref[sl]
-        wx = _weights_t(x_ref[sl], P, M, order)
-        wyz = _kron_iota(y_ref[sl], z_ref[sl], P, M, mxu_dtype, order)
-        G_all = jax.lax.dot_general(
-            E_all, wyz, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_dot_prec(mxu_dtype))
-        Ecs = [jnp.sum(wx * G_all[c * P:(c + 1) * P, :], axis=0)[None]
-               + e_ext[c] for c in range(C)]
-        vs = [vx_ref[sl], vy_ref[sl], vz_ref[sl]]
-        outs, vdot = _kick_rows(vs, Ecs, qm, boris)
-        for voref, vn, v in zip((vxo_ref, vyo_ref, vzo_ref), outs, vs):
-            voref[sl] = v + alive * (vn - v)
-        return vdot_acc + jnp.sum(vdot * alive)
+    pid = pl.program_id(0)
+    t = pid // NC
+    c = pid % NC
+    sl = pl.ds(c * BC, BC)
+    P3 = P * P * P
+    lo, hi = -float(M), float(T + M)
+    for s in range(S):
+        a = alive_ref[s, t, sl]
+        live = a > 0.5
+        x = [lpos_ref[s, d, t, sl] for d in range(3)]
+        v = [vel_ref[s, d, t, sl] for d in range(3)]
+        if kick:
+            E = [jnp.zeros_like(a) + e_ext[d] for d in range(3)]
+            for idx, w in _corners(x, M, P, order_acc):
+                for d in range(3):
+                    E[d] = E[d] + w * e_ref[(t * P3 + idx) * 3 + d]
+            b = None if boris is None else boris[s]
+            vn, vdot = _kick(v, E, qm[s], b)
+            v = [jnp.where(live, vn[d], v[d]) for d in range(3)]
+            for d in range(3):
+                vel_out[s, d, t, sl] = v[d]
+            ke_ref[s, t, c] = jnp.sum(jnp.where(live, vdot, 0.0))
+        if drift:
+            x = [x[d] + v[d] for d in range(3)]
+            out = jnp.zeros(a.shape, jnp.bool_)
+            for d in range(3):
+                pos_out[s, d, t, sl] = x[d]
+                out = out | (x[d] < lo) | (x[d] >= hi)
+            nout_ref[s, t, c] = jnp.sum(jnp.where(live & out, 1.0, 0.0))
+        if deposit:
+            qa = jnp.where(live, charge[s], 0.0)
+            for idx, w in _corners(x, M, P, order_distr):
+                val = qa * w
+                if interpret:
+                    # the interpreter's atomic_add drops repeated indices
+                    # within one vector; a functional scatter-add sums them
+                    rho_ref[...] = rho_ref[...].at[t * P3 + idx].add(val)
+                else:
+                    plgpu.atomic_add(rho_ref, (t * P3 + idx,), val,
+                                     mask=val != 0.0)
 
-    total = jax.lax.fori_loop(0, G, tile_body, jnp.float32(0))
 
-    @pl.when(j == 0)
-    def _():
-        ke_ref[...] = jnp.zeros_like(ke_ref) + total
+def particle_pass(lpos, vel, alive, ts: TileSpec, *, charge, qm=None,
+                  field=None, kick=False, drift=False, deposit=False,
+                  order_acc=1, order_distr=1, e_ext=None, boris_T=None,
+                  boris_S=None, interpret=False):
+    """Run the chosen parts of one particle step for all species.
 
-    @pl.when(j != 0)
-    def _():
-        ke_ref[...] += total
+    lpos, vel: (S, 3, NT, B) tile-local planes; alive: (S, NT, B) f32 0/1;
+    B must be a multiple of a power-of-two chunk (slot_quantum).
+    charge, qm: per-species deposit weights and kick factors (q/m * dt),
+    Python floats.  field: (NT, P, P, P, 3) padded E tiles (ops.tiled.
+    pad_tiles; kick only — a half kick passes the field and e_ext already
+    halved).  boris_T /
+    boris_S: optional (S, 3) rotation vectors (puGet3DRotationParameters,
+    src/pusher.c:483-505).
 
-
-def gather_kick(field_pad: jax.Array, xyz: jax.Array, vel: jax.Array,
-                alive: jax.Array, qm: float, ts: TileSpec,
-                interpret: bool = False, mxu_dtype=jnp.float32,
-                tiles_per_step: int = 8, order: int = 1,
-                e_ext=None, boris=None):
-    """Fused field gather + velocity kick + kinetic-energy sum for one
-    species (the KE variants of the reference's accelerators:
-    puAcc3D1KE src/pusher.c:178-214 with vdot = v.(v+dv); puBoris3D1KE
-    src/pusher.c:437-482 with vdot = |v_plus|^2).
-
-    field_pad (NT, P, P, P, C); xyz, vel (3, NT, B); alive (NT, B) f32.
-    qm: q/m * dt (fold any half-kick factor in here — E enters linearly).
-    order: 1 CIC / 0 NGP gather.  e_ext: optional 3-tuple of floats added
-    to the gathered field (scale it with any half-kick factor).  boris:
-    optional (T, S) float 3-tuples for the magnetic rotation.
-    Returns (new_vel (3, NT, B), vdot_sum scalar)."""
-    assert ts.n_dims == 3
-    _, NT, B = xyz.shape
+    Returns (rho tiles (NT, P, P, P) or None, lpos', vel', vdot (S,),
+    n_out (S,)): vdot is the per-species sum over live particles of the
+    kick's KE term (zeros without kick), n_out the live particles beyond
+    the wander margin after the drift (zeros without drift)."""
+    assert ts.n_dims == 3, "the particle kernel is 3-D (ops.tiled for ND)"
+    S, D, NT, B = lpos.shape
     P = ts.P
-    C = field_pad.shape[-1]
-    G = _tiles_per_step(NT, tiles_per_step)
-    e_ext_t = (0.0, 0.0, 0.0) if e_ext is None else tuple(
-        float(v) for v in e_ext)
-    boris_t = None if boris is None else (
-        tuple(float(v) for v in boris[0]), tuple(float(v) for v in boris[1]))
+    BC = _chunk(B)
+    NC = B // BC
+    f32 = jnp.float32
+    charge = tuple(float(q) for q in charge)
+    qm = tuple(float(q) for q in qm) if qm is not None else (0.0,) * S
+    e_ext = (0.0, 0.0, 0.0) if e_ext is None else tuple(
+        float(e) for e in e_ext)
+    boris = None
+    if boris_T is not None:
+        boris = tuple((tuple(float(u) for u in boris_T[s]),
+                       tuple(float(u) for u in boris_S[s]))
+                      for s in range(S))
 
-    E = jnp.moveaxis(field_pad, -1, 1).reshape(NT, C, P, P * P)
-    # lane chunking for large-B buckets (10 row blocks: 7 in + 3 out)
-    J = _lane_chunks(B, 10, G)
-    CB = B // J
-    row = pl.BlockSpec((G, CB), lambda i, j: (i, j),
-                       memory_space=pltpu.VMEM)
-    vxo, vyo, vzo, ke = pl.pallas_call(
-        partial(_gather_kick_kernel, P=P, M=ts.M, C=C, qm=float(qm),
-                mxu_dtype=mxu_dtype, G=G, order=order, e_ext=e_ext_t,
-                boris=boris_t),
-        out_shape=(jax.ShapeDtypeStruct((NT, B), jnp.float32),
-                   jax.ShapeDtypeStruct((NT, B), jnp.float32),
-                   jax.ShapeDtypeStruct((NT, B), jnp.float32),
-                   jax.ShapeDtypeStruct((NT // G, 1, 128),
-                                        jnp.float32)),
-        grid=(NT // G, J),
-        in_specs=[row] * 7 + [
-            pl.BlockSpec((G, C, P, P * P), lambda i, j: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM)],
-        out_specs=(row, row, row,
-                   pl.BlockSpec((1, 1, 128), lambda i, j: (i, 0, 0),
-                                memory_space=pltpu.VMEM)),
+    args = [lpos, vel, alive]
+    out_shape = []
+    aliases = {}
+    if kick:
+        args.append(field.reshape(-1).astype(f32))
+    if deposit:
+        aliases[len(args)] = 0
+        args.append(jnp.zeros((NT * P ** 3,), f32))
+        out_shape.append(jax.ShapeDtypeStruct((NT * P ** 3,), f32))
+    if drift:
+        aliases[0] = len(out_shape)
+        out_shape.append(jax.ShapeDtypeStruct(lpos.shape, f32))
+    if kick:
+        aliases[1] = len(out_shape)
+        out_shape.append(jax.ShapeDtypeStruct(vel.shape, f32))
+        out_shape.append(jax.ShapeDtypeStruct((S, NT, NC), f32))
+    if drift:
+        out_shape.append(jax.ShapeDtypeStruct((S, NT, NC), f32))
+    assert out_shape, "particle_pass needs at least one of kick/drift/deposit"
+
+    res = list(pl.pallas_call(
+        partial(_kernel, S=S, NC=NC, BC=BC, T=ts.T, M=ts.M, P=P,
+                charge=charge, qm=qm, kick=kick, drift=drift,
+                deposit=deposit, order_acc=order_acc,
+                order_distr=order_distr, e_ext=e_ext, boris=boris,
+                interpret=interpret),
+        out_shape=tuple(out_shape),
+        grid=(NT * NC,),
+        in_specs=[pl.BlockSpec()] * len(args),
+        out_specs=tuple(pl.BlockSpec() for _ in out_shape),
+        input_output_aliases=aliases,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
         interpret=interpret,
-    )(xyz[0], xyz[1], xyz[2], vel[0], vel[1], vel[2], alive, E)
-    return jnp.stack([vxo, vyo, vzo]), jnp.sum(ke[:, 0, 0])
+        name="pic_particles",
+    )(*args))
+    tiles = res.pop(0).reshape(NT, P, P, P) if deposit else None
+    new_lpos = res.pop(0) if drift else lpos
+    new_vel = vel
+    vdot = jnp.zeros((S,), f32)
+    if kick:
+        new_vel = res.pop(0)
+        vdot = jnp.sum(res.pop(0), axis=(1, 2))
+    n_out = (jnp.sum(res.pop(0), axis=(1, 2)) if drift
+             else jnp.zeros((S,), f32))
+    return tiles, new_lpos, new_vel, vdot, n_out

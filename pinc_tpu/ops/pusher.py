@@ -1,7 +1,7 @@
 """Particle movers and accelerators (leapfrog / Boris), plus deposition
 bindings to the method registry.
 
-TPU-native equivalents of the reference's pusher module
+JAX-native equivalents of the reference's pusher module
 (``src/pusher.c``): ``puMove`` (pos += vel, src/pusher.c:86-119),
 ``puAcc3D1[KE]``/``puAccND1[KE]`` (CIC gather + kick,
 src/pusher.c:147-308), ``puAccND0[KE]`` (NGP, src/pusher.c:314-391) and
@@ -117,7 +117,7 @@ def _gathered_field(E: jax.Array, p: Particles, order: int,
     if chunk and n > chunk:
         # chunked sweep: the 2^D corner-gather intermediates peak at
         # ~chunk slots instead of the whole population — reference-
-        # semantics decks past the flat single-shot HBM peak still run
+        # semantics decks past the flat single-shot memory peak still run
         # (the C reference streams one particle at a time and has no
         # such peak, langmuirCold.ini:38 runs 64 ppc at any size)
         cell = _pad_chunks(p.cell.reshape(n, D), n, chunk)
@@ -215,7 +215,7 @@ def deposit(p: Particles, params: SpeciesParams, shape: Sequence[int],
     chunk > 0: scan the scatter over fixed-size particle chunks,
     accumulating into one rho grid — peak intermediate memory becomes
     O(chunk * 2^D) instead of O(S*cap * 2^D), so reference-semantics
-    decks beyond the flat single-shot HBM peak still run (the padded
+    decks beyond the flat single-shot memory peak still run (the padded
     tail deposits value 0, i.e. exactly nothing).
     """
     S, cap, D = p.cell.shape

@@ -1,10 +1,9 @@
-"""Tiled (bucketed) particle layout: scatter-free deposition on the MXU.
+"""Tiled (bucketed) particle layout and its XLA route.
 
 The irregular-memory heart of PIC is charge deposition — the reference
 walks particles one at a time scattering into 8 nodes (puDistr3D1,
-src/pusher.c:512-572), and the XLA translation (`.at[].add`) lowers to a
-serialized/sort-based scatter that wastes the TPU.  This module removes the
-scatter entirely:
+src/pusher.c:512-572).  This module keeps particles bucketed by tile so
+that deposit and gather touch only a tile's small padded node block:
 
 * The grid is split into tiles of ``T^D`` cells; particles live in
   fixed-capacity per-tile buckets, positions stored *tile-local*.
@@ -14,17 +13,19 @@ scatter entirely:
 
       rho_tile[a,b,c] = sum_p q_p wx[p,a] wy[p,b] wz[p,c]
 
-  i.e. one (B x P) x (B x P^2) matmul per tile — MXU work at ~1.5k flops
-  per particle instead of 8 random writes.  Out-of-support positions get
-  weight 0 automatically, so dead slots and recent tile-leavers are safe.
+  i.e. one (B x P) x (B x P^2) matmul per tile (the XLA route here; the
+  fused Triton kernel of ops.pallas_tiled scatters the 8 corners with
+  atomics instead).  Out-of-support positions get weight 0, so dead
+  slots and recent tile-leavers are safe.
 * The padded tile blocks are folded into the global grid with roll/concat
   overlap-adds (same sequential-dimension corner flow as the halo ops).
 * The margin M lets particles wander M cells past their tile before their
-  weights would clamp, so re-bucketing (a sort/gather pass) only runs every
-  ``floor(M / v_max)`` steps and amortizes away.
+  weights would clamp, so re-bucketing (ops.exchange, or the sort in
+  bucket()) only runs every ``floor(M / v_max)`` steps.
 
-Field gather stays an XLA *gather* (fast on TPU) — done against the padded
-tile blocks with exact tile-local weights.
+Field gather reads the padded tile blocks with exact tile-local weights.
+The contractions run at HIGHEST precision: a default-precision f32
+product may run in TF32 on the GPU, which breaks charge conservation.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ from typing import List, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @dataclass(frozen=True)
@@ -86,19 +89,10 @@ _SLOT_ORDER_CACHE: dict = {}
 
 def _slot_order(B: int) -> np.ndarray:
     """Within-tile slot assignment order: a FIXED pseudo-random
-    permutation when B % 8 == 0, so occupancy — and therefore FREE
-    slots — spreads evenly over the 8 sublane rows of the (8, B/8)
-    kernel view.  The per-row exchange kernels (ops/pallas_exchange v4)
-    merge arrivals into free slots of their own row; a compact prefix
-    layout starves the busy rows.
-
-    Pseudo-random rather than exactly row-cyclic: structured inputs
-    correlate particle order with POSITION (the lattice IC sweeps x
-    fastest, so a cyclic map sends each tile's whole x=0 boundary plane
-    into row 0 — that row's first-exchange leavers overflow the per-row
-    face cap and ~0.4% of the population was shed in step 1).  A fixed
-    permutation decorrelates any input ordering; per-row occupancy is
-    then Binomial(count, 1/8) — tightly balanced at production sizes."""
+    permutation when B % 8 == 0, so live particles — and free slots —
+    spread evenly over the bucket, and slot order is decorrelated from
+    position (the lattice IC sweeps x fastest, so in input order
+    neighbouring slots would share deposit nodes)."""
     if B % 8:
         return np.arange(B)
     order = _SLOT_ORDER_CACHE.get(B)
@@ -122,8 +116,7 @@ def bucket(pos: jax.Array, vel: jax.Array, alive: jax.Array,
     tid = jnp.where(alive, tid, ts.NT)            # dead last
 
     # multi-operand stable sorts carry the payloads through the sort
-    # network — separate argsort + payload gathers cost ~3 extra random
-    # passes at the chip's ~50M lookups/s.  TWO sorts with the same key
+    # instead of argsort + payload gathers.  TWO sorts with the same key
     # (stable => identical permutation) instead of one 7-operand sort:
     # the transient operand buffers are the setup-time memory peak at
     # 100M+ particle populations
@@ -217,16 +210,7 @@ def global_positions(lpos: jax.Array, ts: TileSpec) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# Exchange re-bucketing lives in ops/pallas_exchange.py (plane-based
-# extract/merge selection-matmul kernels).  An earlier payload-stacked
-# formulation (6 directional full-payload XLA sweeps) was removed: it
-# measured 2.3x slower AND silently lost ~2% of particles per call on
-# real hardware.  bucket() above (lax.sort) remains the generic ND
-# fallback and the initial-bucketing path.
-# ---------------------------------------------------------------------------
-
-# ---------------------------------------------------------------------------
-# Deposition: separable MXU contraction + overlap-add fold
+# Deposition: separable contraction + overlap-add fold
 # ---------------------------------------------------------------------------
 
 def _hat_weights(x: jax.Array, ts: TileSpec, order: int = 1) -> jax.Array:
@@ -256,12 +240,13 @@ def _deposit_tiles(lpos: jax.Array, value: jax.Array, ts: TileSpec,
               for d in range(D)]            # D x (C,B,P)
         ws[0] = ws[0] * val[..., None]
         if D == 1:
-            return jnp.einsum("cbx->cx", ws[0])
+            return jnp.sum(ws[0], axis=1)
         if D == 2:
-            return jnp.einsum("cbx,cby->cxy", ws[0], ws[1])
-        wyz = jnp.einsum("cby,cbz->cbyz", ws[1], ws[2]).reshape(
+            return jnp.einsum("cbx,cby->cxy", ws[0], ws[1],
+                              precision=_HIGHEST)
+        wyz = (ws[1][..., :, None] * ws[2][..., None, :]).reshape(
             lp.shape[0], lp.shape[1], P * P)
-        out = jnp.einsum("cbx,cbk->cxk", ws[0], wyz,
+        out = jnp.einsum("cbx,cbk->cxk", ws[0], wyz, precision=_HIGHEST,
                          preferred_element_type=jnp.float32)
         return out.reshape(lp.shape[0], P, P, P)
 
@@ -287,9 +272,8 @@ def _fold_axis(x: jax.Array, tile_ax: int, node_ax: int, ts: TileSpec,
     roll = roll_fn or (lambda a, s, ax: jnp.roll(a, s, axis=ax))
     M, T = ts.M, ts.T
     # concat-based overlap-add: zero-padded margin contributions summed
-    # with the core in one fusible elementwise pass — the previous
-    # at[].add formulation lowered to dynamic-update-slice copies of the
-    # whole body per margin (measured 5.0 -> 3.9 ms per fold at 128^3)
+    # with the core in one fusible elementwise pass (an at[].add
+    # formulation lowers to dynamic-update-slice copies of the body)
     sl = lambda a, b: jax.lax.slice_in_dim(x, a, b, axis=node_ax)
     core = sl(M, M + T)                                # offsets 0..T-1
     zeros_like_n = lambda n: jnp.zeros(
@@ -337,40 +321,6 @@ def deposit_tiled(lpos: jax.Array, alive: jax.Array, charge,
 # Gather: padded tile blocks + per-particle XLA gather (exact local weights)
 # ---------------------------------------------------------------------------
 
-def pad_tiles_cmajor(field: jax.Array, ts: TileSpec,
-                     roll_fns=None) -> jax.Array:
-    """Global (grid..., C) -> component-major padded tiles
-    (NT, C, P, P**(D-1) * ...), i.e. the exact (NT, C, P, P*P) layout the
-    Pallas gather/step kernels consume — the C axis is placed during the
-    initial tile transpose, so no separate 65 MB moveaxis pass is paid
-    per step."""
-    D = ts.n_dims
-    nt = ts.ntiles
-    C = field.shape[-1]
-    shape = []
-    for d in range(D):
-        shape += [nt[d], ts.T]
-    x = field.reshape(shape + [C])
-    # (n0, T0, n1, T1, .., C) -> (n0, n1, .., C, T0, T1, ..)
-    perm = [2 * d for d in range(D)] + [2 * D] + \
-        [2 * d + 1 for d in range(D)]
-    x = jnp.transpose(x, perm)
-    for d in range(D):
-        roll = ((roll_fns[d] if roll_fns else None)
-                or (lambda a, s, ax: jnp.roll(a, s, axis=ax)))
-        node_ax = D + 1 + d
-        lo = jax.lax.slice_in_dim(x, x.shape[node_ax] - ts.M,
-                                  x.shape[node_ax], axis=node_ax)
-        lo = roll(lo, 1, d)
-        hi = jax.lax.slice_in_dim(x, 0, ts.M + 1, axis=node_ax)
-        hi = roll(hi, -1, d)
-        x = jnp.concatenate([lo, x, hi], axis=node_ax)
-    tail = 1
-    for _ in range(D - 1):
-        tail *= ts.P
-    return x.reshape(ts.NT, C, ts.P, tail)
-
-
 def pad_tiles(field: jax.Array, ts: TileSpec, roll_fns=None) -> jax.Array:
     """Global (grid..., C) or (grid...) -> (NT, P.., [C]) padded blocks
     (periodic).  Sequential per-dim so corners are correct.
@@ -404,18 +354,16 @@ def pad_tiles(field: jax.Array, ts: TileSpec, roll_fns=None) -> jax.Array:
     return x
 
 
-def gather_tiled_mxu(field_pad: jax.Array, lpos: jax.Array,
+def gather_tiled_dense(field_pad: jax.Array, lpos: jax.Array,
                      ts: TileSpec, chunk: int = 4,
                      order: int = 1) -> jax.Array:
-    """Dense-contraction gather — the transpose of the deposition matmuls.
-
-    Per-particle XLA gathers lower to near-serial loops on TPU; instead the
-    field at each particle is the separable contraction
+    """Dense-contraction gather — the transpose of the deposition
+    contraction: the field at each particle is
 
         E_p = sum_abc wx[p,a] wy[p,b] wz[p,c] F[a,b,c]
 
-    evaluated dimension-by-dimension on the MXU (~3x the deposit flops,
-    still compute-bound).  Chunked over tiles to bound the (B, P^2, C)
+    evaluated dimension by dimension (the adjoint of the deposit, with the
+    same hat weights).  Chunked over tiles to bound the (B, P^2, C)
     intermediate."""
     D = ts.n_dims
     P = ts.P
@@ -426,19 +374,19 @@ def gather_tiled_mxu(field_pad: jax.Array, lpos: jax.Array,
         lp, F = args                        # (c,B,D), (c,P..P,C)
         ws = [_hat_weights(lp[..., d], ts, order) for d in range(D)]
         if D == 1:
-            return jnp.einsum("cbx,cxv->cbv", ws[0], F,
+            return jnp.einsum("cbx,cxv->cbv", ws[0], F, precision=_HIGHEST,
                               preferred_element_type=jnp.float32)
         if D == 2:
-            t = jnp.einsum("cbx,cxyv->cbyv", ws[0], F,
+            t = jnp.einsum("cbx,cxyv->cbyv", ws[0], F, precision=_HIGHEST,
                            preferred_element_type=jnp.float32)
-            return jnp.einsum("cby,cbyv->cbv", ws[1], t)
+            return jnp.sum(ws[1][..., None] * t, axis=2)
         Ff = F.reshape(F.shape[0], P, P * P * C)
-        t1 = jnp.einsum("cbx,cxk->cbk", ws[0], Ff,
+        t1 = jnp.einsum("cbx,cxk->cbk", ws[0], Ff, precision=_HIGHEST,
                         preferred_element_type=jnp.float32)
         t1 = t1.reshape(t1.shape[0], t1.shape[1], P, P * C)
-        t2 = jnp.einsum("cby,cbyk->cbk", ws[1], t1)
+        t2 = jnp.sum(ws[1][..., None] * t1, axis=2)
         t2 = t2.reshape(t2.shape[0], t2.shape[1], P, C)
-        return jnp.einsum("cbz,cbzv->cbv", ws[2], t2)
+        return jnp.sum(ws[2][..., None] * t2, axis=2)
 
     c = min(chunk, NT)
     if NT % c != 0:
@@ -477,3 +425,70 @@ def gather_tiled(field_pad: jax.Array, lpos: jax.Array,
         contrib = w[..., None] * val
         out = contrib if out is None else out + contrib
     return out
+
+
+# ---------------------------------------------------------------------------
+# One particle step on the XLA route (contract of ops.pallas_tiled)
+# ---------------------------------------------------------------------------
+
+def particle_pass(lpos, vel, alive, ts: TileSpec, *, charge, qm=None,
+                  field=None, kick=False, drift=False, deposit=False,
+                  order_acc=1, order_distr=1, e_ext=None, boris_T=None,
+                  boris_S=None, gather="dense"):
+    """The chosen parts of one particle step (kick, drift, deposit) for
+    all species, with the contract of ops.pallas_tiled.particle_pass in
+    any D.  It is the XLA route of the tiled layout and the plain
+    reference the kernel is checked against.
+
+    lpos, vel: (S, D, NT, B); alive (S, NT, B) f32 0/1; field: (NT, P..,
+    D) padded tiles (pad_tiles).  gather: "dense" for the dense contraction
+    (hat weights, the exact adjoint of the deposit), anything else for
+    the per-corner gather.  Returns (tiles (NT, P..) or None, lpos', vel',
+    vdot (S,), n_out (S,))."""
+    S, D = lpos.shape[:2]
+    lo, hi = -float(ts.M), float(ts.T + ts.M)
+    g_fn = gather_tiled_dense if gather == "dense" else gather_tiled
+    tiles = None
+    lposs, vels = [], []
+    vdots, nouts = [], []
+    for s in range(S):
+        x, v = lpos[s], vel[s]
+        live = alive[s] > 0.5
+        if kick:
+            Ep = jnp.moveaxis(g_fn(field, jnp.moveaxis(x, 0, -1), ts,
+                                   order=order_acc), -1, 0)   # (D, NT, B)
+            if e_ext is not None:
+                Ep = Ep + jnp.asarray(e_ext, Ep.dtype)[:, None, None]
+            if boris_T is not None:
+                halfk = 0.5 * qm[s] * Ep
+                v_minus = v + halfk
+                Tv = jnp.asarray(boris_T[s], jnp.float32)[:, None, None]
+                Sv = jnp.asarray(boris_S[s], jnp.float32)[:, None, None]
+                v_prime = v_minus + jnp.cross(v_minus, Tv, axis=0)
+                v_plus = v_minus + jnp.cross(v_prime, Sv, axis=0)
+                v_new = v_plus + halfk
+                # reference KE convention: 0.5 m |v_plus|^2
+                # (puBoris3D1KE, src/pusher.c:465-471)
+                v_dot = jnp.sum(v_plus * v_plus, axis=0)
+            else:
+                v_new = v + qm[s] * Ep
+                v_dot = jnp.sum(v * v_new, axis=0)
+            vdots.append(jnp.sum(jnp.where(live, v_dot, 0.0)))
+            v = jnp.where(live[None], v_new, v)
+        if drift:
+            x = x + v
+            out = jnp.any((x < lo) | (x >= hi), axis=0)
+            nouts.append(jnp.sum(live & out).astype(jnp.float32))
+        if deposit:
+            value = jnp.where(live, jnp.float32(charge[s]), 0.0)
+            t = _deposit_tiles(jnp.moveaxis(x, 0, -1), value, ts,
+                               order_distr)
+            tiles = t if tiles is None else tiles + t
+        lposs.append(x)
+        vels.append(v)
+    zeros = jnp.zeros((S,), jnp.float32)
+    return (tiles,
+            jnp.stack(lposs) if drift else lpos,
+            jnp.stack(vels) if kick else vel,
+            jnp.stack(vdots) if kick else zeros,
+            jnp.stack(nouts) if drift else zeros)

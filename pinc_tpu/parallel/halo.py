@@ -1,11 +1,11 @@
-"""Halo exchange via ICI collective permutes.
+"""Halo exchange via collective permutes.
 
-The TPU-native replacement for the reference's ``gHaloOp``/``gHaloOpDim``
+The JAX-native replacement for the reference's ``gHaloOp``/``gHaloOpDim``
 (src/grid.c:340-406): where the C extracts a slice, MPI_Sendrecv's it to the
 ±1 neighbor and sets/adds it into the ghost layer (guarded by an
 MPI_Barrier, grid.c:390), here each direction is one ``lax.ppermute`` over a
 mesh axis inside ``shard_map`` — XLA's dataflow ordering replaces the
-barrier, and the permutes ride the ICI links.
+barrier, and the permutes ride the device interconnect.
 
 Two operations, mirroring the reference's TOHALO/FROMHALO modes:
 

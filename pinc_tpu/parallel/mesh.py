@@ -1,10 +1,10 @@
-"""Device-mesh construction — the TPU equivalent of the reference's
+"""Device-mesh construction — the JAX equivalent of the reference's
 Cartesian MPI decomposition (``MpiInfo``, src/core.h:112-138; rank →
 subdomain mapping ``getSubdomain``, src/grid.c:149-176).
 
 The deck's ``grid:nSubdomains`` becomes the extents of an N-D
 ``jax.sharding.Mesh`` with axes named 'x','y','z',... — one device per
-subdomain, ICI neighbors where MPI had Sendrecv peers.  Devices are
+subdomain, mesh neighbors where MPI had Sendrecv peers.  Devices are
 linearized in the same mixed-radix order the reference uses (last
 dimension fastest).
 """

@@ -1,7 +1,7 @@
 """Sharded geometric multigrid: shard_map smoothers with explicit halo
 exchange.
 
-The TPU-native equivalent of the reference's distributed multigrid — the
+The JAX-native equivalent of the reference's distributed multigrid — the
 communication structure mirrors it exactly:
 
 * per-color halo refresh in the red-black smoother: ``gHaloOp(setSlice,..)``
@@ -16,7 +16,7 @@ communication structure mirrors it exactly:
 Everything — the V/W/FMG cycle over all levels AND the outer tolerance
 ``while_loop`` — runs inside ONE ``shard_map`` over the deck's device
 mesh, so each device owns a static local block per level and every
-transfer is an explicit ICI permute.  This replaces the
+transfer is an explicit collective permute.  This replaces the
 auto-partitioned fallback (``with_sharding_constraint`` around the
 single-block solver) whose per-roll collectives XLA inserted blindly.
 

@@ -1,6 +1,6 @@
 """Particle migration across the device mesh.
 
-TPU-native replacement for the reference's emigrant machinery
+JAX-native replacement for the reference's emigrant machinery
 (``puExtractEmigrants3D``/``ND`` + ``puMigrate``, src/pusher.c:782-1035):
 the C classifies particles into 3^D-1 neighbor bins, packs them into
 dynamically-sized buffers with back-fill deletion, and exchanges counts and

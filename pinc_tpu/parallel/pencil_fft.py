@@ -15,7 +15,7 @@ between pencil orientations from ``with_sharding_constraint``:
       -> inverse mirror
 
 Communication: four axis-remap all-to-alls of the (complex) field per
-solve, each moving ~the local volume over ICI — the textbook pencil-FFT
+solve, each moving ~the local volume over the interconnect — the textbook pencil-FFT
 cost.  The reference's FFTW solver is 1D single-rank only
 (src/spectral.c:80-90); this is its scale-out generalization.
 

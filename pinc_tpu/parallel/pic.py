@@ -1,6 +1,6 @@
 """The sharded PIC step: domain decomposition over a device mesh.
 
-This is the TPU-native equivalent of everything MPI in the reference
+This is the JAX-native equivalent of everything MPI in the reference
 (SURVEY.md §2 'Parallelism strategies'): the deck's ``grid:nSubdomains``
 Cartesian decomposition becomes a ``jax.sharding.Mesh``; grid halo
 exchanges become ``lax.ppermute`` pairs (parallel.halo); particle
@@ -313,14 +313,21 @@ class ShardedSimulation(Simulation):
         return run_n
 
 
-# Above this many particle slots (capacity x species) the flat layout's
-# working set cannot fit a single chip's HBM and the tiled layout is
-# selected automatically when the deck does not pin methods:layout.
-# Measured on the bepiColombo allocation (2 x 33.5M slots): the flat
-# half-kick peaks ~32 GiB — ~512 bytes/slot from the 8-corner CIC
-# index/weight expansions — so ~29M slots is the true ceiling of a
-# 16 GiB v5e; 24M leaves headroom for fields and IO staging.
-AUTO_TILED_SLOTS = 24_000_000
+# Device bytes per particle slot (capacity x species) of the flat
+# layout's compiled step (arguments + outputs + temporaries; the 8-corner
+# CIC index/weight expansions dominate): 142.3 measured on an H100 at
+# 64^3 x 2 x 32 per cell (16.8M slots).
+FLAT_BYTES_PER_SLOT = 143
+
+
+def auto_tiled_slots() -> int:
+    """Slot count above which the flat layout's working set cannot fit
+    the device, so single-device decks that do not pin methods:layout
+    take the tiled layout: 3/4 of the device's memory over the flat
+    step's peak bytes per slot (the rest is headroom for fields and IO
+    staging)."""
+    from .. import backend
+    return int(0.75 * backend.memory_bytes()) // FLAT_BYTES_PER_SLOT
 
 
 def make_simulation(cfg: PincConfig, seed: int = 1, devices=None) -> Simulation:
@@ -340,7 +347,7 @@ def make_simulation(cfg: PincConfig, seed: int = 1, devices=None) -> Simulation:
         return ShardedSimulation(cfg, seed=seed, devices=devices)
     if not layout and (capacity_of(cfg)
                        * cfg.get_int("population:nspecies")
-                       > AUTO_TILED_SLOTS):
+                       > auto_tiled_slots()):
         msg(STATUS, "auto-selected methods:layout=tiled (%d particle "
             "slots exceed the flat layout's single-chip working set); "
             "pin methods:layout=flat to override",

@@ -2,10 +2,10 @@
 
 Composes the two scaling mechanisms of the framework:
 
-* the **tiled particle layout** (ops/tiled.py + Pallas kernels) — MXU
-  deposition/gather with no scatters; and
-* the **domain decomposition** (parallel/mesh.py) — the TPU-native
-  replacement for the reference's MPI Cartesian decomposition.
+* the **tiled particle layout** (ops/tiled.py, ops/pallas_tiled.py) —
+  deposit and gather confined to each tile's padded node block; and
+* the **domain decomposition** (parallel/mesh.py) — the JAX replacement
+  for the reference's MPI Cartesian decomposition.
 
 The composition is natural because tiles are already a spatial
 decomposition: the device mesh partitions the *tile grid* (state arrays
@@ -16,20 +16,19 @@ one-plane ``lax.ppermute`` fetch (parallel.halo.shifted_tiles):
 
 * deposition overlap-add fold   → fold_to_global(roll_fns=...)
 * field tile padding for gather → pad_tiles(roll_fns=...)
-* re-bucket neighbor transfers  → rebucket_exchange_planes(roll_fns=...)
+* re-bucket neighbor transfers  → ops.exchange.rebucket_exchange(
+  roll_fns=...)
 
 This mirrors the reference's communication structure exactly — gHaloOp's
 per-dimension Sendrecv sweeps (src/grid.c:340-406) and puMigrate's
 neighbor payload exchange (src/pusher.c:914-1035) — but every transfer
-rides ICI inside one jitted step, with XLA dataflow replacing the
+is a collective inside one jitted step, with XLA dataflow replacing the
 reference's MPI_Barrier ordering hack (src/grid.c:386-390).
 """
 
 from __future__ import annotations
 
-import math
 from functools import partial
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
@@ -55,12 +54,6 @@ class ShardedTiledSimulation(TiledSimulation):
 
     def __init__(self, cfg: PincConfig, seed: int = 1, devices=None):
         super().__init__(cfg, seed=seed)
-        if self._rebucket_mode != "exchange":
-            raise ValueError(
-                "the sharded tiled path supports tiles:rebucket=exchange "
-                "only (a per-device sort cannot re-home cross-device "
-                "migrants); drop the tiles:rebucket override or use a "
-                "single device")
         self.ctx = make_mesh(self.spec.n_subdomains, self.spec.true_size,
                              devices=devices)
         ctx = self.ctx
@@ -80,14 +73,13 @@ class ShardedTiledSimulation(TiledSimulation):
         from .pencil_fft import make_sharded_solver
         self._solve = make_sharded_solver(self.solver, ctx, cfg,
                                           self.spec.dtype)
-        from ..tiled_sim import _jit
-        self._tstep_jit = _jit(self._sharded_tiled_step,
-                               donate_argnums=(0,))
-        self._thalf_jit = _jit(self._sharded_tiled_half_kick,
-                               donate_argnums=(0,))
-        self._rebucket_jit = _jit(self._sharded_rebucket,
-                                  donate_argnums=(0,),
-                                  static_argnames=("species",))
+        self._tstep_jit = jax.jit(self._sharded_tiled_step,
+                                  donate_argnums=(0,))
+        self._thalf_jit = jax.jit(self._sharded_tiled_half_kick,
+                                  donate_argnums=(0,))
+        self._rebucket_jit = jax.jit(self._sharded_rebucket,
+                                     donate_argnums=(0,),
+                                     static_argnames=("species",))
         if self.objects is not None:
             # per-device static near-object tile subsets (the single-chip
             # dilated mask, cut per mesh block and padded to the max count
@@ -122,10 +114,10 @@ class ShardedTiledSimulation(TiledSimulation):
                         pad[i, j, k, :len(a)] = a
             self._obj_tiles_sharded = jax.device_put(
                 jnp.asarray(pad), ctx.sharding(P(*ctx.axes, None)))
-            self._tstep_obj_jit = _jit(self._tiled_step_obj,
-                                       donate_argnums=(0,))
-            self._thalf_obj_jit = _jit(self._tiled_half_kick_obj,
-                                       donate_argnums=(0,))
+            self._tstep_obj_jit = jax.jit(self._tiled_step_obj,
+                                          donate_argnums=(0,))
+            self._thalf_obj_jit = jax.jit(self._tiled_half_kick_obj,
+                                          donate_argnums=(0,))
         msg(STATUS, "sharded tiled layout: %s device mesh over %s tiles",
             ctx.n_subdomains, self.ts.ntiles)
 
@@ -154,146 +146,38 @@ class ShardedTiledSimulation(TiledSimulation):
                 for d in range(len(ctx.axes))]
 
     # -------------------------------------------------------- local parts
-    def _local_fields(self, st):
-        """Per-device: deposit local tiles, fold with ppermute halos."""
+    def _local_planes(self, st):
+        """Per-shard state -> (S, D, NTl, B) planes for a particle pass."""
         ln = self.ts_local
-        D = ln.n_dims
-        NTl, B = ln.NT, ln.B
-        roll_fns = self._roll_fns()
-        # sum the padded tile blocks across species and fold ONCE — the
-        # fold is an HBM pass plus 6 ppermute halo-plane transfers
-        interp = jax.devices()[0].platform == "cpu"
-        tiles = None
-        for s in range(st.lpos.shape[0]):
-            q = float(np.asarray(self.params.charge)[s])
-            xyz = st.lpos[s].reshape(D, NTl, B)
-            alive = st.alive[s].reshape(NTl, B)
-            value = jnp.where(alive, jnp.asarray(q, jnp.float32), 0.0)
-            if self._backend == "pallas":
-                from ..ops import pallas_tiled as ptl
-                t = ptl.deposit(xyz, value, ln, interpret=interp,
-                                mxu_dtype=self._mxu_dtype,
-                                order=self._distr_order)
-                t = t.reshape((NTl,) + (ln.P,) * D)
-            else:
-                t = tl._deposit_tiles(jnp.moveaxis(xyz, 0, -1), value, ln,
-                                      order=self._distr_order)
-            tiles = t if tiles is None else tiles + t
-        rho = tl.fold_to_global(tiles, ln, roll_fns=roll_fns)
-        return rho.astype(self.spec.dtype)
+        S, D = st.lpos.shape[:2]
+        return (st.lpos.reshape(S, D, ln.NT, ln.B),
+                st.vel.reshape(S, D, ln.NT, ln.B),
+                st.alive.reshape(S, ln.NT, ln.B))
 
-    def _local_move_fields(self, st):
-        """Per-device fused drift+deposit (ops.pallas_tiled.deposit_move):
-        the particle planes stream HBM->VMEM once for the move, margin
-        count, masking and deposition together — the same fusion as the
-        single-chip scan path, composed with the ppermute tile wraps."""
-        from ..ops import pallas_tiled as ptl
-        ln = self.ts_local
-        D = ln.n_dims
-        NTl, B = ln.NT, ln.B
-        interp = jax.devices()[0].platform == "cpu"
-        charge = np.asarray(self.params.charge)
-        tiles = None
-        lposs = []
-        n_out = jnp.zeros((), jnp.float32)
-        for s in range(st.lpos.shape[0]):
-            xyz = st.lpos[s].reshape(D, NTl, B)
-            vel = st.vel[s].reshape(D, NTl, B)
-            alive = st.alive[s].reshape(NTl, B).astype(jnp.float32)
-            t, nxyz, n_o = ptl.deposit_move(
-                xyz, vel, alive, float(charge[s]), ln,
-                interpret=interp, mxu_dtype=self._mxu_dtype,
-                order=self._distr_order)
-            tiles = t if tiles is None else tiles + t
-            lposs.append(nxyz.reshape(st.lpos[s].shape))
-            n_out = n_out + n_o
-        st2 = TiledState(lpos=jnp.stack(lposs), vel=st.vel, alive=st.alive)
-        rho = tl.fold_to_global(
-            tiles.reshape((NTl,) + (ln.P,) * D), ln,
-            roll_fns=self._roll_fns())
-        return st2, rho.astype(self.spec.dtype), n_out
+    def _local_fields(self, st):
+        """Per-device: deposit local tiles (all species into one tile
+        set), fold ONCE with ppermute halos."""
+        tiles = self._particles(*self._local_planes(st), self.ts_local,
+                                deposit=True)[0]
+        rho = tl.fold_to_global(tiles, self.ts_local,
+                                roll_fns=self._roll_fns())
+        return rho.astype(self.spec.dtype)
 
     def _local_kick(self, st, E_local, half: bool):
         """Per-shard velocity kick with the full method routing
         (CIC/NGP order, external E, Boris rotation) — mirrors
         TiledSimulation._kick with psum'd KE."""
-        ln = self.ts_local
-        D = ln.n_dims
-        NTl, B = ln.NT, ln.B
-        roll_fns = self._roll_fns()
-        E_pad = tl.pad_tiles(E_local, ln, roll_fns=roll_fns)
         e_scale = 0.5 if half else 1.0
-        if half:
-            E_pad = 0.5 * E_pad
-        qm = self.params.charge / self.params.mass
-        order = self._acc_order
-        interp = jax.devices()[0].platform == "cpu"
-        if self._backend == "pallas" and not half:
-            # fused gather+kick+KE kernel (full-step kicks; the half kick
-            # at init keeps the explicit path for the 0.5*E scaling)
-            from ..ops import pallas_tiled as ptl
-            ep5 = E_pad.reshape((NTl,) + (ln.P,) * 3 + (E_local.shape[-1],))
-            qm = (np.asarray(self.params.charge)
-                  / np.asarray(self.params.mass))
-            vels, kes = [], []
-            for s in range(st.lpos.shape[0]):
-                xyz = st.lpos[s].reshape(D, NTl, B)
-                vel = st.vel[s].reshape(D, NTl, B)
-                alive = st.alive[s].reshape(NTl, B).astype(jnp.float32)
-                boris = (None if not self._acc_boris else
-                         (tuple(self._boris_T[s]), tuple(self._boris_S[s])))
-                nv, vdot = ptl.gather_kick(
-                    ep5, xyz, vel, alive, float(qm[s]), ln,
-                    interpret=interp, mxu_dtype=self._mxu_dtype,
-                    order=order, e_ext=self._e_ext, boris=boris)
-                ke = 0.5 * float(np.asarray(self.params.mass)[s]) * vdot
-                for ax in self.ctx.axes:
-                    ke = lax.psum(ke, ax)
-                kes.append(ke)
-                vels.append(nv.reshape(st.vel[s].shape))
-            return (TiledState(lpos=st.lpos, vel=jnp.stack(vels),
-                               alive=st.alive), jnp.stack(kes))
-        if self._backend == "pallas":
-            from ..ops import pallas_tiled as ptl
-            ep5 = E_pad.reshape((NTl,) + (ln.P,) * 3 + (E_local.shape[-1],))
-            gather = lambda xyz: ptl.gather(ep5, xyz, ln, interpret=interp,
-                                            mxu_dtype=self._mxu_dtype,
-                                            order=order)
-        else:
-            gather = lambda xyz: jnp.moveaxis(tl.gather_tiled_mxu(
-                E_pad, jnp.moveaxis(xyz, 0, -1), ln, order=order), -1, 0)
-        vels, kes = [], []
-        for s in range(st.lpos.shape[0]):
-            xyz = st.lpos[s].reshape(D, NTl, B)
-            alive = st.alive[s].reshape(NTl, B)
-            Ep = gather(xyz)                       # (D, NTl, B)
-            if self._e_ext is not None:
-                Ep = Ep + e_scale * jnp.asarray(
-                    self._e_ext, Ep.dtype)[:, None, None]
-            vel = st.vel[s].reshape(D, NTl, B)
-            if self._acc_boris:
-                halfk = 0.5 * qm[s] * Ep
-                v_minus = vel + halfk
-                T = jnp.asarray(self._boris_T[s],
-                                jnp.float32)[:, None, None]
-                Sv = jnp.asarray(self._boris_S[s],
-                                 jnp.float32)[:, None, None]
-                v_prime = v_minus + jnp.cross(v_minus, T, axis=0)
-                v_plus = v_minus + jnp.cross(v_prime, Sv, axis=0)
-                v_new = v_plus + halfk
-                v_dot = jnp.sum(v_plus * v_plus, axis=0)
-            else:
-                v_new = vel + qm[s] * Ep
-                v_dot = jnp.sum(vel * v_new, axis=0)
-            v_dot = jnp.where(alive, v_dot, 0.0)
-            ke = 0.5 * self.params.mass[s] * jnp.sum(v_dot)
-            for ax in self.ctx.axes:
-                ke = lax.psum(ke, ax)
-            kes.append(ke)
-            vels.append(jnp.where(alive[None], v_new, vel)
-                        .reshape(st.vel[s].shape))
-        return (TiledState(lpos=st.lpos, vel=jnp.stack(vels),
-                           alive=st.alive), jnp.stack(kes))
+        E_pad = e_scale * tl.pad_tiles(E_local, self.ts_local,
+                                       roll_fns=self._roll_fns())
+        _, _, vel, vdot, _ = self._particles(
+            *self._local_planes(st), self.ts_local, field=E_pad,
+            e_scale=e_scale, kick=True)
+        ke = 0.5 * jnp.asarray(self.params.mass, jnp.float32) * vdot
+        for ax in self.ctx.axes:
+            ke = lax.psum(ke, ax)
+        return (TiledState(lpos=st.lpos, vel=vel.reshape(st.vel.shape),
+                           alive=st.alive), ke)
 
     def _local_reflect(self, stl):
         """Specular reflection at non-periodic global walls, per shard:
@@ -334,12 +218,7 @@ class ShardedTiledSimulation(TiledSimulation):
         # the exchange works on the local tile grid; only the buffer wrap
         # crosses devices
         lnt = ln.ntiles
-        buf_rolls = [
-            (lambda a, s, ax, d=d: shifted_tiles(
-                a, ax, s, self.ctx.axes[d], self.ctx.n_subdomains[d]))
-            for d in range(D)]
-        from ..ops import pallas_exchange as pex
-        interp = jax.devices()[0].platform == "cpu"
+        from ..ops.exchange import rebucket_exchange
         S = st.lpos.shape[0]
         species = tuple(range(S)) if species is None else tuple(species)
         lpos, vel, alive = st.lpos, st.vel, st.alive
@@ -347,11 +226,9 @@ class ShardedTiledSimulation(TiledSimulation):
         for s in species:
             planes = tuple(lpos[s, d].reshape(NTl, B) for d in range(D)) \
                 + tuple(vel[s, d].reshape(NTl, B) for d in range(D))
-            planes, al, d_n = pex.rebucket_exchange_planes(
-                planes, alive[s].reshape(NTl, B),
-                lnt, ln.T, K=self._exchange_cap, interpret=interp,
-                roll_fns=buf_rolls,
-                rows=getattr(self, "_exchange_rows", False))
+            planes, al, d_n = rebucket_exchange(
+                planes, alive[s].reshape(NTl, B), lnt, ln.T,
+                K=self._exchange_cap, roll_fns=self._roll_fns())
             lpos = lpos.at[s].set(
                 jnp.stack(planes[:D]).reshape(lpos[s].shape))
             vel = vel.at[s].set(
@@ -534,16 +411,13 @@ class ShardedTiledSimulation(TiledSimulation):
         fspec = ctx.field_spec()
 
         def dep(stl):
-            if do_move and self._backend == "pallas" and self.spec.periodic:
-                stl, rho, n_out = self._local_move_fields(stl)
-            else:
-                if do_move:
-                    stl = TiledState(lpos=stl.lpos + stl.vel, vel=stl.vel,
-                                     alive=stl.alive)
-                    if not self.spec.periodic:
-                        stl = self._local_reflect(stl)
-                rho = self._local_fields(stl)
-                n_out = self._out_of_margin(stl)
+            if do_move:
+                stl = TiledState(lpos=stl.lpos + stl.vel, vel=stl.vel,
+                                 alive=stl.alive)
+                if not self.spec.periodic:
+                    stl = self._local_reflect(stl)
+            rho = self._local_fields(stl)
+            n_out = self._out_of_margin(stl)
             for ax in ctx.axes:
                 n_out = lax.psum(n_out, ax)
             return stl, rho, n_out
@@ -584,48 +458,26 @@ class ShardedTiledSimulation(TiledSimulation):
     def _rebucket(self, st: TiledState, species=None):
         return self._sharded_rebucket(st, species=species)
 
-    def _make_scan_steps_mega(self, n: int, donate: bool = False,
-                              fresh: bool = False):
-        """Sharded mega scan: the single-chip pic_step body per shard
-        (kick with the previous field, drift, deposit — one Pallas kernel
-        for all species), with the padded field tiles riding the carry as
-        a tile-grid-sharded array and every tile wrap on ppermute.
-
-        fresh is accepted for make_scan_steps API parity; the per-step
-        margin schedule is not yet plumbed through the sharded body (the
-        single-chip path is the perf-critical one)."""
-        del fresh
-        from ..ops import pallas_tiled as ptl
+    def _make_scan_steps_mega(self, n: int, donate: bool = False):
+        """Sharded fused scan: the single-device body per shard (kick with
+        the previous field, drift, deposit — one particle pass for all
+        species), with the padded field tiles riding the carry as a
+        tile-grid-sharded array and every tile wrap on ppermute."""
         ctx = self.ctx
         sspec = self._state_spec
         fspec = ctx.field_spec()
         ln = self.ts_local
         lnt = ln.ntiles
-        gnt = self.ts.ntiles
-        P3 = ln.P
-        C = 3
-        espec = P(*ctx.axes, None, None, None)
-        interp = jax.devices()[0].platform == "cpu"
-        charge = tuple(float(c) for c in np.asarray(self.params.charge))
-        qm = tuple(float(c / m) for c, m in
-                   zip(charge, np.asarray(self.params.mass)))
+        espec = P(*ctx.axes, None, None, None, None)
         mass_j = jnp.asarray(np.asarray(self.params.mass), jnp.float32)
 
-        def particles_part(stl, ep5l):
-            S = stl.lpos.shape[0]
-            NTl, B = ln.NT, ln.B
-            tiles, lpos, vel, vdot, _ = ptl.pic_step(
-                ep5l.reshape(NTl, C, P3, P3 * P3),
-                stl.lpos.reshape(S, 3, NTl, B),
-                stl.vel.reshape(S, 3, NTl, B),
-                stl.alive.reshape(S, NTl, B), charge, qm, ln,
-                interpret=interp, mxu_dtype=self._mxu_dtype,
-                order_acc=self._acc_order, order_distr=self._distr_order,
-                e_ext=self._e_ext, boris_T=self._boris_T,
-                boris_S=self._boris_S)
+        def particles_part(stl, e_pad):
+            tiles, lpos, vel, vdot, _ = self._particles(
+                *self._local_planes(stl), ln,
+                field=e_pad.reshape((ln.NT,) + e_pad.shape[3:]),
+                kick=True, drift=True, deposit=True)
             rho = tl.fold_to_global(
-                tiles.reshape((NTl,) + (P3,) * 3), ln,
-                roll_fns=self._roll_fns()).astype(self.spec.dtype)
+                tiles, ln, roll_fns=self._roll_fns()).astype(self.spec.dtype)
             ke = 0.5 * mass_j * vdot
             for ax in ctx.axes:
                 ke = lax.psum(ke, ax)
@@ -635,9 +487,8 @@ class ShardedTiledSimulation(TiledSimulation):
             return st2, rho, ke
 
         def pad_part(El):
-            return tl.pad_tiles_cmajor(
-                El, ln, roll_fns=self._roll_fns()).reshape(
-                    lnt + (C, P3, P3 * P3))
+            e_pad = tl.pad_tiles(El, ln, roll_fns=self._roll_fns())
+            return e_pad.reshape(lnt + e_pad.shape[1:])
 
         pmap_particles = _shard_map(
             particles_part, ctx.mesh, in_specs=(sspec, espec),
@@ -646,34 +497,25 @@ class ShardedTiledSimulation(TiledSimulation):
                               in_specs=(ctx.field_spec(n_values=1),),
                               out_specs=espec)
 
-        def body(carry, _):
-            st, ep5, pe_prev = carry
-            st, rho, ke = pmap_particles(st, ep5)
-            phi = self._solve(rho)
+        def e_field(phi):
             if self.spec.periodic:
-                E = -gradient(phi)
-            else:
-                from ..bc import gradient_bc
-                E = -gradient_bc(phi, self.bc)
-            pe = potential_energy(rho, phi)
-            ep5n = pmap_pad(E) + 0.0 * pe
-            return (st, ep5n, pe), (ke, pe_prev)
+                return -gradient(phi)
+            from ..bc import gradient_bc
+            return -gradient_bc(phi, self.bc)
 
-        def fields_of(st):
-            rho = _shard_map(self._local_fields, ctx.mesh,
-                             in_specs=(sspec,), out_specs=fspec)(st)
+        def body(carry, _):
+            st, e_pad, pe_prev = carry
+            st, rho, ke = pmap_particles(st, e_pad)
             phi = self._solve(rho)
-            if self.spec.periodic:
-                E = -gradient(phi)
-            else:
-                from ..bc import gradient_bc
-                E = -gradient_bc(phi, self.bc)
-            return rho, phi, E
+            pe = potential_energy(rho, phi)
+            return (st, pmap_pad(e_field(phi)), pe), (ke, pe_prev)
 
         def run_n(st, rho_obj=None):
-            rho0, phi0, E0 = fields_of(st)
-            pe0 = potential_energy(rho0, phi0)
-            carry = (st, pmap_pad(E0) + 0.0 * pe0, pe0)
+            rho0 = _shard_map(self._local_fields, ctx.mesh,
+                              in_specs=(sspec,), out_specs=fspec)(st)
+            phi0 = self._solve(rho0)
+            carry = (st, pmap_pad(e_field(phi0)),
+                     potential_energy(rho0, phi0))
             carry, (ke, pe), dropped = self._scan_with_rebuckets(
                 body, carry, n)
             return carry[0], (ke, pe, dropped)

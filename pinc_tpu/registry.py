@@ -1,4 +1,4 @@
-"""Method registry — the TPU-native equivalent of PINC's ``select()`` macro.
+"""Method registry — the JAX-native equivalent of PINC's ``select()`` macro.
 
 The reference binds ini strings (``methods:acc = puAcc3D1KE`` etc.) to
 validated function pointers via ``select()``/``selectInner``

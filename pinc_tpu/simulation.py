@@ -1,6 +1,6 @@
 """The simulation driver: deck -> jitted time step -> run modes.
 
-TPU-native equivalent of the reference's ``main.c``: method selection
+JAX-native equivalent of the reference's ``main.c``: method selection
 (src/main.c:55-79), allocation (src/main.c:84-107), the leapfrog half-kick
 initialization (src/main.c:141-186) and the production time loop
 (src/main.c:197-274) — except that the *entire* per-step pipeline
@@ -96,7 +96,7 @@ class Simulation:
                                else dims_periodic)
         # subclasses that rebuild their own state representation can opt
         # out of materializing the flat (S, cap, D) arrays at giant
-        # populations (the duplicate copy would not fit HBM next to the
+        # populations (the duplicate copy would not fit device memory next to the
         # rebuilt state) — they regenerate per species on device instead
         from .population import capacity_of, species_params_of, \
             wants_device_init

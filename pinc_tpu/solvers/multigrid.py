@@ -1,6 +1,6 @@
 """Geometric multigrid Poisson solver.
 
-TPU-native rebuild of the reference's ``src/multigrid.c``: solve
+JAX-native rebuild of the reference's ``src/multigrid.c``: solve
 ``grad^2 phi = -rho`` with a hierarchy of 2x-coarsened grids, red-black
 Gauss-Seidel (or damped Jacobi) smoothing, half-weighting restriction and
 multilinear prolongation, driven to an RMS-residual tolerance

@@ -1,6 +1,6 @@
 """Spectral (FFT) Poisson solver.
 
-TPU-native generalization of the reference's 1D FFTW solver
+JAX-native generalization of the reference's 1D FFTW solver
 (``sSolve``, src/spectral.c:92-115): solve grad^2 phi = -rho on a fully
 periodic grid by dividing the charge spectrum by k^2 and zeroing the DC mode
 (which simultaneously enforces charge neutrality, like the explicit

@@ -2,7 +2,7 @@
 
 The reference writes grid and population snapshots collectively from
 every rank via MPI-IO (H5Pset_dxpl_mpio, src/grid.c:1161-1180;
-src/population.c:538-651).  h5py here is serial, so the TPU-native
+src/population.c:538-651).  h5py here is serial, so the JAX-native
 equivalent (SURVEY.md §2) is:
 
 * replicated/small outputs (history.xy.h5, timer.xy.h5, grid fields)

@@ -1,4 +1,4 @@
-"""Gather/scatter unit tests with hand-computed values — the TPU port of the
+"""Gather/scatter unit tests with hand-computed values — the JAX port of the
 reference's pusher fixtures (testPuAcc3D1 / testPuDistr3D1,
 test/pusher.test.c:82-258) plus conservation/adjointness property tests the
 reference never had."""

@@ -1,7 +1,7 @@
 """Chunked flat-layout particle sweeps (population:sweepChunk).
 
 The flat layout's gather/scatter expand 2^D corner intermediates over the
-whole population in one shot; past the single-chip HBM peak those decks
+whole population in one shot; past the single-device memory peak those decks
 previously could only run by auto-routing to the tiled layout.  The
 chunked sweeps bound the working set while producing numerically
 identical results (scatter adds associate per chunk in the same corner
@@ -9,7 +9,7 @@ order; gather is elementwise per particle).
 
 Reference parity: the C reference streams particles one at a time
 (src/pusher.c:512-678) and has no working-set peak at all; chunking is
-the TPU-native equivalent discipline.
+the JAX-native equivalent discipline.
 """
 
 import jax

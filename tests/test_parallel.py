@@ -171,7 +171,7 @@ def test_make_simulation_auto_tiled(monkeypatch):
     auto-select the tiled layout unless methods:layout pins it."""
     from pinc_tpu.parallel import pic
     from pinc_tpu.tiled_sim import TiledSimulation
-    monkeypatch.setattr(pic, "AUTO_TILED_SLOTS", 100)
+    monkeypatch.setattr(pic, "FLAT_BYTES_PER_SLOT", 10 ** 15)
     cfg = PincConfig.from_string(
         DECK_3D.format(steps=1, nsub="1,1,1", ts="8,8,8", solver="sSolve"))
     assert isinstance(pic.make_simulation(cfg), TiledSimulation)

@@ -1,4 +1,4 @@
-"""Mover/accelerator tests: the TPU port of the reference's constant-E
+"""Mover/accelerator tests: the JAX port of the reference's constant-E
 leapfrog fixture (testConstE, test/pusher.test.c:18-77) plus Boris-rotation
 invariants."""
 

@@ -1,4 +1,4 @@
-"""End-to-end physics tests — the TPU equivalents of the reference's
+"""End-to-end physics tests — the JAX equivalents of the reference's
 verification strategy (SURVEY.md §4): cold-Langmuir oscillation frequency
 and energy conservation (verification/sweep.py semantics)."""
 

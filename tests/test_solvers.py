@@ -1,4 +1,4 @@
-"""Poisson solver tests: analytic sinusoid fixtures (the TPU equivalent of
+"""Poisson solver tests: analytic sinusoid fixtures (the JAX equivalent of
 mgModeErrorScaling, src/multigrid.c:1734-1851) and cross-solver
 consistency."""
 

@@ -1,4 +1,4 @@
-"""Tiled (MXU-contraction) deposition layout: exactness vs the scatter
+"""Tiled deposition layout: exactness vs the scatter
 path, fold/pad overlap-add fixtures, bucketing, and end-to-end physics
 equivalence."""
 
@@ -160,11 +160,11 @@ def test_layout_dispatch():
 
 
 def test_fused_step_matches_unfused():
-    """The fused pallas step (interpret mode on CPU) reproduces the
-    unfused XLA tiled path."""
-    deck = DECK + "backend = pallas\nmxuDtype = f32\n"
+    """The step on the Triton particle kernel (interpret mode on CPU)
+    reproduces the step on the XLA tiled route."""
+    deck = DECK + "backend = pallas\n"
     sim_f = TiledSimulation(PincConfig.from_string(deck), seed=3)
-    assert sim_f._use_fused
+    assert sim_f._backend == "pallas"
     sim_u = TiledSimulation(PincConfig.from_string(
         DECK + "backend = xla\n"), seed=3)
     st_f, st_u = sim_f.state, sim_u.state
@@ -181,12 +181,12 @@ def test_fused_step_matches_unfused():
 
 
 def test_mega_scan_runs_and_conserves():
-    """The mega-fused scan driver (pic_step body, interpret mode on CPU)
-    runs, conserves the particle count, and produces energies on the same
-    scale as the kernel-pair scan (the kick ordering differs by the
+    """The fused scan driver (one kernel pass per step, interpret mode on
+    CPU) runs, conserves the particle count, and produces energies on the
+    same scale as the unfused scan (the kick ordering differs by the
     leapfrog half-step convention, so trajectories are not elementwise
     comparable)."""
-    deck = DECK + "backend = pallas\nmxuDtype = f32\n"
+    deck = DECK + "backend = pallas\n"
     sim = TiledSimulation(PincConfig.from_string(deck), seed=3)
     assert sim._use_mega
     run_n = sim.make_scan_steps(4)
@@ -197,21 +197,10 @@ def test_mega_scan_runs_and_conserves():
     assert ke.shape == (4, 2) and np.isfinite(ke).all()
 
     sim_u = TiledSimulation(PincConfig.from_string(
-        DECK + "backend = pallas\nmxuDtype = f32\nmega = false\n"), seed=3)
-    assert not sim_u._use_mega and sim_u._use_fused
+        DECK + "backend = pallas\nmega = false\n"), seed=3)
+    assert not sim_u._use_mega
     _, (ke_u, pe_u, _) = sim_u.make_scan_steps(4)(sim_u.state)
     np.testing.assert_allclose(ke[0], np.asarray(ke_u)[0], rtol=0.2)
-
-
-def test_pad_tiles_cmajor_matches(ts):
-    rng = np.random.default_rng(5)
-    E = jnp.asarray(rng.normal(size=(16, 16, 16, 3)).astype(np.float32))
-    ref = jnp.moveaxis(
-        pad_tiles(E, ts).reshape(ts.NT, ts.P, ts.P, ts.P, 3),
-        -1, 1).reshape(ts.NT, 3, ts.P, ts.P * ts.P)
-    from pinc_tpu.ops.tiled import pad_tiles_cmajor
-    out = pad_tiles_cmajor(E, ts)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
 
 
 def test_fold_overlap_add_m2():

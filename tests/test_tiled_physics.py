@@ -80,7 +80,7 @@ def test_boris_tiled_matches_flat(backend):
                         seed=3).run(progress_every=0)
     sim_t = TiledSimulation(
         _deck(acc="puBoris3D1KE", bext=bext,
-              extra=f"backend = {backend}\nmxuDtype = f32\n"), seed=3)
+              extra=f"backend = {backend}\n"), seed=3)
     assert sim_t._acc_boris
     h_tiled = sim_t.run(progress_every=0)
     _compare_histories(h_flat, h_tiled)
@@ -92,7 +92,7 @@ def test_ngp_tiled_matches_flat(backend):
                               tiled=False), seed=3).run(progress_every=0)
     sim_t = TiledSimulation(
         _deck(acc="puAccND0KE", distr="puDistrND0",
-              extra=f"backend = {backend}\nmxuDtype = f32\n"), seed=3)
+              extra=f"backend = {backend}\n"), seed=3)
     assert sim_t._acc_order == 0 and sim_t._distr_order == 0
     h_tiled = sim_t.run(progress_every=0)
     _compare_histories(h_flat, h_tiled)
@@ -104,7 +104,7 @@ def test_eext_tiled_matches_flat(backend):
     h_flat = Simulation(_deck(eext=eext, tiled=False),
                         seed=3).run(progress_every=0)
     sim_t = TiledSimulation(
-        _deck(eext=eext, extra=f"backend = {backend}\nmxuDtype = f32\n"),
+        _deck(eext=eext, extra=f"backend = {backend}\n"),
         seed=3)
     assert sim_t._e_ext is not None
     h_tiled = sim_t.run(progress_every=0)
@@ -112,12 +112,12 @@ def test_eext_tiled_matches_flat(backend):
 
 
 def test_boris_mega_scan_consistent():
-    """The mega-fused scan (pic_step kernel) with Boris+EExt conserves the
-    particle count and tracks the unfused fused-pair scan's energies (the
-    kick uses the previous step's field, so only scale agreement is
+    """The fused scan (one particle pass per step) with Boris+EExt
+    conserves the particle count and tracks the unfused scan's energies
+    (the kick uses the previous step's field, so only scale agreement is
     expected)."""
     bext = "0.05,0.02,0.1"
-    extra = "backend = pallas\nmxuDtype = f32\n"
+    extra = "backend = pallas\n"
     sim_m = TiledSimulation(_deck(acc="puBoris3D1KE", bext=bext,
                                   eext="0.001,0,0",
                                   extra=extra), seed=3)
@@ -131,16 +131,17 @@ def test_boris_mega_scan_consistent():
     sim_u = TiledSimulation(_deck(acc="puBoris3D1KE", bext=bext,
                                   eext="0.001,0,0",
                                   extra=extra + "mega = false\n"), seed=3)
-    assert not sim_u._use_mega and sim_u._use_fused
+    assert not sim_u._use_mega
     _, (ke_u, _, _) = sim_u.make_scan_steps(4)(sim_u.state)
     np.testing.assert_allclose(ke[0], np.asarray(ke_u)[0], rtol=0.2)
 
 
 def test_gather_kick_boris_unit():
-    """Kernel-level check: gather_kick with a uniform field and a Boris
-    rotation reproduces the flat acc_boris arithmetic exactly."""
+    """Kernel-level check: the kick pass with a Boris rotation and an
+    external field reproduces the flat acc_boris arithmetic on the
+    gathered field."""
     from pinc_tpu.ops import pallas_tiled as ptl
-    from pinc_tpu.ops.tiled import TileSpec, bucket, pad_tiles
+    from pinc_tpu.ops.tiled import TileSpec, bucket, gather_tiled, pad_tiles
 
     ts = TileSpec(grid=(8, 8, 8), T=4, M=1, B=128, chunk=8)
     rng = np.random.default_rng(11)
@@ -158,14 +159,14 @@ def test_gather_kick_boris_unit():
     Sv = 2.0 * Tv / (1.0 + np.sum(Tv * Tv))
     eext = (0.01, -0.02, 0.0)
 
-    nv, vdot = ptl.gather_kick(ep5, lpos, lvel, la.astype(jnp.float32),
-                               qm, ts, interpret=True, e_ext=eext,
-                               boris=(tuple(Tv), tuple(Sv)))
+    _, _, nv, vdot, _ = ptl.particle_pass(
+        lpos[None], lvel[None], la.astype(jnp.float32)[None], ts,
+        charge=(-1.0,), qm=(qm,), field=ep5, kick=True, e_ext=eext,
+        boris_T=[Tv], boris_S=[Sv], interpret=True)
+    nv, vdot = nv[0], vdot[0]
 
     # reference arithmetic on the gathered field
-    Ep = jnp.moveaxis(
-        ptl.gather(ep5, lpos, ts, interpret=True), 0, -1)   # (NT,B,3)
-    Ep = Ep + jnp.asarray(eext)
+    Ep = gather_tiled(ep5, lp, ts) + jnp.asarray(eext)       # (NT,B,3)
     half = 0.5 * qm * Ep
     v = jnp.moveaxis(lvel, 0, -1)
     v_minus = v + half

@@ -115,14 +115,14 @@ def test_sharded_tiled_run_writes_energy(pair):
 
 
 def test_sharded_pallas_fused_matches_xla(cpu_devices):
-    """The fused deposit_move/gather_kick sharded step (pallas backend,
+    """The sharded step on the Triton particle kernel (pallas backend,
     interpret mode on CPU) reproduces the XLA sharded step."""
     deck = _deck((2, 2, 2), (8, 8, 8))
     s_xla = ShardedTiledSimulation(
         PincConfig.from_string(deck + "backend = xla\n"), seed=7,
         devices=cpu_devices[:8])
     s_pl = ShardedTiledSimulation(
-        PincConfig.from_string(deck + "backend = pallas\nmxuDtype = f32\n"),
+        PincConfig.from_string(deck + "backend = pallas\n"),
         seed=7, devices=cpu_devices[:8])
     st_x, st_p = s_xla.state, s_pl.state
     for _ in range(2):
@@ -194,12 +194,12 @@ def test_sharded_tiled_objects_matches_single(cpu_devices, tmp_path):
 
 
 def test_sharded_mega_scan_runs(cpu_devices):
-    """The sharded mega scan (per-shard pic_step, field tiles in the
+    """The sharded fused scan (per-shard particle pass, field tiles in the
     carry) runs on the CPU mesh, conserves particles, and its energies
     stay on the same scale as the pair-kernel sharded scan."""
     deck = _deck((2, 2, 2), (8, 8, 8))
     s_m = ShardedTiledSimulation(
-        PincConfig.from_string(deck + "backend = pallas\nmxuDtype = f32\n"),
+        PincConfig.from_string(deck + "backend = pallas\n"),
         seed=7, devices=cpu_devices[:8])
     assert s_m._use_mega
     n0 = int(np.asarray(s_m.state.alive).sum())
@@ -210,7 +210,7 @@ def test_sharded_mega_scan_runs(cpu_devices):
     assert ke.shape == (4, 2) and np.isfinite(ke).all()
 
     s_p = ShardedTiledSimulation(
-        PincConfig.from_string(deck + "backend = pallas\nmxuDtype = f32\n"
+        PincConfig.from_string(deck + "backend = pallas\n"
                                "mega = false\n"),
         seed=7, devices=cpu_devices[:8])
     _, (ke_p, _, _) = s_p.make_scan_steps(4)(s_p.state)
